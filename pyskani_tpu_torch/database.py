@@ -1,0 +1,355 @@
+"""Database: the pyskani-compatible user API over the PyTorch engine.
+
+Port of the in-memory path of the JAX package's ``database.py``: the same
+constructor defaults, ``sketch`` and ``query`` (batched marker screen,
+then the block chain pipeline over the shortlist, then the regression and
+aligned-fraction filters, then ``Hit``).  Tensors live on ``device``,
+which is the card unless the caller passes ``device="cpu"``; there is no
+silent fallback to the CPU.
+
+Not ported yet (each raises ``NotImplementedError``): on-disk stores
+(``path=``, ``open``, ``load``, ``save``), ``sketch_many``, ``est_ci``,
+the full-range per-pair fallback for references past the packed grid
+range, genomes above the single-call sketch buffer, and k other than 15.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import List, Optional, Union
+
+import numpy as np
+import torch
+
+from . import regression
+from .db.storage import MarkerSketch, MemoryStorage
+from .engine.batch import (check_overflow, one_vs_many, repad_sketch,
+                           stack_sketches)
+from .hit import Hit
+from .ops.chain import ChainConfig, EngineBudgets, rcid_bits_for
+from .ops.screen import screen_batch
+from .ops.sketch import (HostSketch, contig_budget_for, round_up,
+                         sketch_genome_device)
+from .params import (MIN_ANI_KEEP, CommandParams, SEARCH_ANI_CUTOFF_DEFAULT,
+                     SketchParams)
+
+_Sequence = Union[str, bytes, bytearray, memoryview]
+
+
+def _as_bytes(contig: _Sequence) -> bytes:
+    """Accept str/bytes/bytearray/memoryview/buffer (pyskani's Text
+    semantics, utils.rs:74-102)."""
+    if isinstance(contig, str):
+        return contig.encode("utf-8")
+    if isinstance(contig, (bytes, bytearray)):
+        return bytes(contig)
+    return bytes(memoryview(contig))
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(
+        f"{what} is not ported to the PyTorch engine yet (ROADMAP.md "
+        f"queues it); use the JAX package pyskani_tpu for it")
+
+
+class Sketch:
+    """A sketched genome (parity with pyskani's Sketch pyclass: name / c /
+    amino_acid getters, no public constructor)."""
+
+    def __init__(self, host_sketch: HostSketch, c: int,
+                 amino_acid: bool = False):
+        self._host = host_sketch
+        self._c = c
+        self._amino_acid = amino_acid
+
+    @property
+    def name(self) -> str:
+        return self._host.name
+
+    @property
+    def c(self) -> int:
+        return self._c
+
+    @property
+    def amino_acid(self) -> bool:
+        return self._amino_acid
+
+    def __repr__(self) -> str:
+        return f"<Sketch name={self.name!r} c={self.c}>"
+
+
+def _chain_cfg_for(params: SketchParams) -> ChainConfig:
+    """Chain config derived from the sketch params: the ANI exponent is
+    1/k and chain intervals extend by k-1."""
+    return dataclasses.replace(ChainConfig(), k=params.k,
+                               extend_right=params.k - 1)
+
+
+def _partition_blockable(by_name, shortlist, query_total: int = 0):
+    """Split a shortlist into (block_names, fb_names, cb, cap).
+
+    ``block_names`` chain on the packed block pipeline whose contig bucket
+    ``cb`` (max over block members) gives the position cap
+    ``2^(32-rcid_bits)``; ``fb_names`` exceed the cap and need the
+    full-range per-pair pipeline.  Iterated to a fixed point.  Queries
+    >= 2^30 bp total route every reference to the full-range path."""
+    if query_total >= (1 << 30):
+        return [], list(shortlist), 8, 1 << (32 - rcid_bits_for(8))
+    block = list(shortlist)
+    while True:
+        cb = max((contig_budget_for(len(by_name[rn].contig_lengths))
+                  for rn in block), default=8)
+        cap = 1 << (32 - rcid_bits_for(cb))
+        viol = {rn for rn in block
+                if max(by_name[rn].contig_lengths, default=0) >= cap}
+        if not viol:
+            break
+        block = [rn for rn in block if rn not in viol]
+    blocked = set(block)
+    return block, [rn for rn in shortlist if rn not in blocked], cb, cap
+
+
+def _pow2_chunk(n: int, cap: int = 16) -> int:
+    """Bucket a chunk size to a power of two."""
+    p = 1
+    while p < min(max(n, 1), cap):
+        p *= 2
+    return p
+
+
+def _resolve_device(device) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "pyskani_tpu_torch.Database runs on the GPU by default and "
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+class Database:
+    """A database storing sketched genomes, in memory, on ``device``.
+
+    The database contains two sketch collections with different
+    compression levels: marker sketches (screening) and genome sketches
+    (chaining)."""
+
+    def __init__(self, path=None, *, compression: int = 125,
+                 marker_compression: int = 1000, k: int = 15,
+                 format: Optional[str] = None, device=None):
+        if path is not None or format is not None:
+            _not_ported("an on-disk database (path=/format=)")
+        if k != 15:
+            _not_ported(f"k={k} (generic k sketching)")
+        self._device = _resolve_device(device)
+        self._params = SketchParams(c=compression,
+                                    marker_c=marker_compression, k=k)
+        self._markers: List[MarkerSketch] = []
+        self._chain_cfg = _chain_cfg_for(self._params)
+        self._screen_cache = None
+        self._stack_cache = None
+        self._storage = MemoryStorage()
+
+    @classmethod
+    def open(cls, path) -> "Database":
+        _not_ported("Database.open")
+
+    @classmethod
+    def load(cls, path) -> "Database":
+        _not_ported("Database.load")
+
+    @property
+    def path(self):
+        return None
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def compression(self) -> int:
+        return self._params.c
+
+    @property
+    def marker_compression(self) -> int:
+        return self._params.marker_c
+
+    def __enter__(self) -> "Database":
+        return self
+
+    def __exit__(self, exc_type, exc_value, traceback) -> bool:
+        self.flush()
+        return False
+
+    def sketch(self, name: str, *contigs: _Sequence, seed: bool = True) -> None:
+        """Add a reference genome to the database.  ``seed=False`` skips
+        seed-position recording: the sketch screens but never chains."""
+        self._sketch(name, [_as_bytes(c) for c in contigs], seed)
+
+    def _sketch(self, name: str, data, seed: bool = True) -> Sketch:
+        host = sketch_genome_device(name, data, self._params, seed=seed,
+                                    device=self._device)
+        self._register_sketch(host)
+        return Sketch(host, self._params.c)
+
+    def sketch_many(self, named_contigs) -> None:
+        _not_ported("Database.sketch_many (batched sketching)")
+
+    def _register_sketch(self, host: HostSketch) -> None:
+        """Register a sketch (made here or by ``convert.sketch_from_numpy``)."""
+        if host.device.device != self._device:
+            host = dataclasses.replace(
+                host, device=host.device.map(lambda t: t.to(self._device)))
+        dev = host.device
+        m = int(dev.n_markers)
+        self._markers.append(MarkerSketch(
+            name=host.name, total_len=host.total_len,
+            contig_names=host.contig_names,
+            contig_lengths=list(host.lengths),
+            hi=dev.markers_hi[:m].cpu().numpy().astype(np.uint32),
+            lo=dev.markers_lo[:m].cpu().numpy().astype(np.uint32)))
+        self._screen_cache = None
+        self._stack_cache = None
+        self._storage.store(host, self._params)
+
+    def _marker_matrix(self):
+        """Stacked, padded marker matrix [N, M] on the device."""
+        if self._screen_cache is None:
+            n = len(self._markers)
+            M = round_up(max((len(m.hi) for m in self._markers), default=1),
+                         512)
+            hi = np.full((n, M), 0xFFFFFFFF, np.int64)
+            lo = np.full((n, M), 0xFFFFFFFF, np.int64)
+            counts = np.zeros(n, np.int32)
+            for i, m in enumerate(self._markers):
+                hi[i, :len(m.hi)] = m.hi
+                lo[i, :len(m.lo)] = m.lo
+                counts[i] = len(m.hi)
+            self._screen_cache = tuple(torch.from_numpy(a).to(self._device)
+                                       for a in (hi, lo, counts))
+        return self._screen_cache
+
+    def _budgets_for(self, query: HostSketch, shortlist=None) -> EngineBudgets:
+        fl = self._chain_cfg.fragment_length
+        # the fragment budget covers BOTH estimation grids: the query and
+        # the longest shortlisted reference, bucketed to limit shapes
+        nf_q = query.n_fragments(fl)
+        markers = self._markers if shortlist is None else \
+            [m for m in self._markers
+             if os.path.basename(m.name) in shortlist]
+        nf_r = max((sum(max(1, -(-L // fl)) for L in m.contig_lengths)
+                    for m in markers), default=1)
+        nf = round_up(max(nf_q, nf_r) + 2, 128)
+        if nf > 384:
+            p = 512
+            while p < nf:
+                p *= 2
+            nf = p
+        qa = query.device.seed_budget
+        return EngineBudgets(
+            max_anchors=round_up(int(qa * 1.5) + 4096, 8192),
+            max_fragments=nf,
+            max_anchors_per_fragment=256,
+        )
+
+    def _ref_stack(self):
+        """(names, stacked DeviceSketch, seed_bucket, marker_bucket) for
+        the whole reference store, cached until the next sketch."""
+        if self._stack_cache is None:
+            names = [os.path.basename(m.name) for m in self._markers]
+            refs = [self._storage.load(n) for n in names]
+            counts = torch.stack([torch.stack([r.device.n_seeds,
+                                               r.device.n_markers])
+                                  for r in refs]).cpu()
+            bucket = round_up(int(counts[:, 0].max()), 8192)
+            mbucket = round_up(int(counts[:, 1].max()), 512)
+            stack = stack_sketches(refs, seed_budget=bucket,
+                                   marker_budget=mbucket)
+            self._stack_cache = (names, stack, bucket, mbucket)
+        return self._stack_cache
+
+    def query(self, name: str, *contigs: _Sequence, seed: bool = True,
+              learned_ani: Optional[bool] = None, median: bool = False,
+              robust: bool = False, cutoff: Optional[float] = None,
+              faster_small: bool = False, est_ci: bool = False) -> List[Hit]:
+        """Query the database with a genome (pyskani lib.rs:512-660)."""
+        if est_ci:
+            _not_ported("est_ci=True (bootstrap confidence interval)")
+        data = [_as_bytes(c) for c in contigs]
+        query = sketch_genome_device(name, data, self._params, seed=seed,
+                                     device=self._device)
+        learned = learned_ani if learned_ani is not None else \
+            regression.use_learned_ani(self._params.c, False, False, median)
+        cmd = CommandParams(
+            screen_val=(cutoff if cutoff is not None
+                        else SEARCH_ANI_CUTOFF_DEFAULT),
+            robust=robust, median=median, learned_ani=learned,
+            rescue_small=not faster_small)
+        model = regression.get_model(self._params.c, cmd.learned_ani)
+
+        hits: List[Hit] = []
+        if not self._markers:
+            return hits
+
+        # phase 1: batched marker screen (all references at once)
+        hi, lo, counts = self._marker_matrix()
+        qdev = query.device
+        passes, _ = screen_batch(
+            qdev.markers_hi, qdev.markers_lo, qdev.n_markers,
+            hi, lo, counts, cmd.screen_val,
+            marker_k=self._params.marker_k, rescue_small=cmd.rescue_small)
+        passes = passes.cpu().numpy()
+        # shortlist in marker insertion order, deduplicated
+        shortlist = list(dict.fromkeys(
+            os.path.basename(self._markers[i].name)
+            for i in np.nonzero(passes)[0]))
+
+        # phase 2: block chain pipeline over the shortlist
+        by_name = {os.path.basename(m.name): m for m in self._markers}
+        block_names, fb_names, cb, _ = _partition_blockable(
+            by_name, shortlist, query.total_len)
+        if fb_names:
+            _not_ported("the full-range per-pair path (references with "
+                        "contigs past the packed grid range, or queries "
+                        ">= 2^30 bp)")
+        out: dict = {}
+        if block_names:
+            names_all, stack, bucket, mbucket = self._ref_stack()
+            if cb != stack.contig_lengths.shape[1]:
+                stack = dataclasses.replace(
+                    stack, contig_lengths=stack.contig_lengths[:, :cb])
+            qpad = repad_sketch(query, max(bucket, qdev.seed_budget),
+                                max(mbucket, qdev.marker_budget))
+            budgets = self._budgets_for(query, set(block_names))
+            bcap = max(1, min(16, (1 << 17) // budgets.max_fragments))
+            idx = np.array([names_all.index(rn) for rn in block_names],
+                           np.int64)
+            part = one_vs_many(stack, qpad, idx, cfg=self._chain_cfg,
+                               budgets=budgets,
+                               chunk=_pow2_chunk(len(idx), cap=bcap))
+            out = {k: v.cpu().numpy() for k, v in part.items()}
+            check_overflow(out, budgets)
+
+        key = "ani_median" if median else \
+            "ani_robust" if robust else "ani_mean"
+        maf = cmd.min_aligned_frac
+        for i, ref_name in enumerate(shortlist):
+            ani = float(out[key][i])
+            af_q = float(out["af_query"][i])
+            af_r = float(out["af_ref"][i])
+            # the learned correction targets the MEAN estimator only
+            if model is not None and not median and not robust:
+                ani = regression.apply_model(model, ani, af_q, af_r)
+            if af_q < maf and af_r < maf:
+                continue
+            if ani > MIN_ANI_KEEP:
+                hits.append(Hit(min(max(ani, 0.0), 1.0), name, af_q,
+                                ref_name, af_r))
+        return hits
+
+    def save(self, path, overwrite: bool = False,
+             format: Optional[str] = None) -> None:
+        _not_ported("Database.save")
+
+    def flush(self) -> None:
+        """Nothing to flush for an in-memory database."""

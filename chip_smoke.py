@@ -19,11 +19,16 @@ Phases (any failure exits non-zero and prints no result line):
              must hit exactly its family.  The chain-DP kernel's launch
              count is reset just before this phase and read just after;
              the first query's hits are checked against the CPU port;
-5. kernels — every DP grid the search fed the kernel, plus random
-             tie-heavy grids, through the CUDA kernel and its plain
+5. kernels — every DP grid the search fed the kernel, random tie-heavy
+             grids and edge grids (PF = 100, bands 0/1/25/32, anchors
+             resuming after 40 invalid columns, empty rows, a tie across
+             two 32-column chunks) through the CUDA kernel and its plain
              PyTorch version: score and root must be bit-equal.  Times
-             the kernel (median of CUDA-event-timed launches) and the
-             plain version and computes the card's bound for the work.
+             the kernel on the first search grid as device time (launches
+             queued behind a sleep kernel, so the host's enqueue is off
+             the clock), warm and with L2 flushed, the wrapper's host
+             time per call and the plain version, and computes the card's
+             bound for the work.
 
 The last three lines are the card line, one ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
@@ -34,6 +39,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -177,7 +183,7 @@ def phase_search(result, torch, dev, args, recorded):
 
     # the queries come from the families with the longest roots, so each
     # query's fragment budget is NF = 256 and its one chain block has
-    # NL = 16 x 256 = 4096 lanes
+    # R = 16 x 256 = 4096 DP rows
     q_fams = [int(i) for i in np.argsort(-root_len)[:args.queries]]
     queries = [(f"q{f:02d}", mutate(rng, roots[f], 0.01, 0.001).tobytes())
                for f in q_fams]
@@ -221,7 +227,7 @@ def phase_search(result, torch, dev, args, recorded):
         f"queries/s; {len(queries) / sum(q_times):.2f} queries/s overall")
     log(f"[search] screen passed {passed} of {args.refs}: screened-out "
         f"share {screened_out:.4f}; chain-DP launches {launches}, "
-        f"grid shapes [PF, NL] {shapes}")
+        f"grid shapes [R, PF] {shapes}")
 
     if args.profile:
         g_prof = mutate(rng, roots[q_fams[0]], 0.01, 0.001).tobytes()
@@ -280,47 +286,161 @@ def _profile(torch, fn):
         raise RuntimeError("the profiler recorded no device activity")
     busy = sum(us for us, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    dp_us = sum(us for k, (us, _) in by_name.items() if "chain_dp" in k)
     out = dict(wall_us=wall_us, device_busy_us=busy,
                idle_share=1.0 - busy / wall_us,
                device_launches=sum(n for _, n in by_name.values()),
+               chain_dp_us=dp_us,
                top=[dict(name=k[:80], device_us=us, count=n)
                     for k, (us, n) in top])
     log(f"[profile] wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms in {out['device_launches']} device "
-        f"activities, idle share {out['idle_share']:.3f}")
+        f"activities, idle share {out['idle_share']:.3f}; chain-DP kernel "
+        f"{dp_us / 1e3:.4f} ms")
     for t in out["top"][:8]:
         log(f"[profile]   {t['device_us'] / 1e3:9.3f} ms x{t['count']:5d} "
             f"{t['name']}")
     return out
 
 
-def _tie_grid(rng, PF, NL, torch, dev):
-    """Random tie-heavy [PF, NL] grids: small coordinates, so many
+def _tie_grid(rng, R, PF, torch, dev):
+    """Random tie-heavy [R, PF] grids: small coordinates, so many
     predecessors give equal candidates; rows sorted by (rcid, rpos)."""
-    n = rng.integers(0, PF + 1, NL)
-    rp = rng.integers(0, 160, (NL, PF))
-    cid = rng.integers(0, 2, (NL, PF))
-    rev = rng.random((NL, PF)) < 0.3
-    qp = np.clip(rp + rng.integers(-3, 4, (NL, PF)), 0, None)
+    n = rng.integers(0, PF + 1, R)
+    rp = rng.integers(0, 160, (R, PF))
+    cid = rng.integers(0, 2, (R, PF))
+    rev = rng.random((R, PF)) < 0.3
+    qp = np.clip(rp + rng.integers(-3, 4, (R, PF)), 0, None)
     order = np.lexsort((rp, cid), axis=-1)
     rp = np.take_along_axis(rp, order, 1)
     cid = np.take_along_axis(cid, order, 1)
     ok = np.arange(PF)[None, :] < n[:, None]
+    return _planes(torch, dev, qp, rp, cid, rev, ok)
+
+
+def _planes(torch, dev, qp, rp, cid, rev, ok):
     meta = np.where(ok, (cid << 3) | (rev.astype(np.int64) << 1) | 1, 0)
     qp, rp = np.where(ok, qp, 0), np.where(ok, rp, 0)
-    return tuple(torch.from_numpy(np.ascontiguousarray(a.T).astype(np.int32))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a).astype(np.int32))
                  .to(dev) for a in (qp, rp, meta))
 
 
-def _dp_tests(meta_t, band):
-    """Predecessor tests the data needs: lane with v valid anchors (rows
-    0..v-1) tests min(j, band) predecessors at row j."""
-    v = (meta_t & 1).sum(0).double()
+# edge grids of the kernel's design: label -> (valid pattern, PF, band)
+EDGES = {"pf100": ("prefix", 100, 25), "band0": ("runs", 96, 0),
+         "band1": ("runs", 96, 1), "band25": ("runs", 96, 25),
+         "band32": ("runs", 96, 32), "resume": ("resume", 128, 32),
+         "empty": ("empty", 64, 25), "cross_chunk_tie": ("tie", 64, 25)}
+
+
+def _edge_grid(rng, pattern, R, PF, torch, dev):
+    """[R, PF] tie-heavy near-diagonal rows whose valid anchors follow
+    ``pattern``: a prefix; alternating valid and invalid runs of 1-44
+    columns; valid columns resuming after 40 invalid ones; every other row
+    empty; or every row with a planted tie: column 33 has two chain heads
+    at gap 5 with equal candidates, column 30 (previous 32-column chunk)
+    and column 32 (this chunk), and must take column 32."""
+    rp = np.sort(rng.integers(0, 400, (R, PF)), 1)
+    qp = np.clip(rp + rng.integers(-4, 5, (R, PF)), 0, None)
+    cid = (rng.random((R, PF)) < 0.1).cumsum(1) % 8
+    rev = rng.random((R, PF)) < 0.3
+    cols = np.arange(PF)[None, :]
+    if pattern == "prefix":
+        ok = cols < rng.integers(0, PF + 1, (R, 1))
+    elif pattern == "runs":
+        lens = rng.integers(1, 45, (R, PF))
+        run = np.zeros((R, PF), np.int64)
+        for r in range(R):
+            run[r] = np.repeat(np.arange(PF), lens[r])[:PF]
+        ok = (run + np.arange(R)[:, None]) % 2 == 1
+    elif pattern == "resume":
+        stop = rng.integers(1, 40, (R, 1))
+        ok = (cols < stop) | (cols >= stop + 40)
+    elif pattern == "empty":
+        ok = (np.arange(R)[:, None] % 2 == 0) & \
+            (cols < rng.integers(0, PF + 1, (R, 1)))
+    else:
+        ok = cols != 31
+        rp[:, :30] = np.arange(30) * 3        # columns 0-29 chain to
+        qp[:, :30] = 1000 - np.arange(30)     # nothing: q falls as r rises
+        rp[:, 30:34] = [90, 0, 91, 100]
+        qp[:, 30:34] = [95, 0, 86, 100]
+        cid[:, :34] = 0
+        rev[:, :34] = False
+    return _planes(torch, dev, qp, rp, cid, rev, ok)
+
+
+def _dp_tests(meta, band):
+    """Predecessor tests the data needs: a row with v valid anchors
+    (columns 0..v-1) tests min(j, band) predecessors at column j."""
+    v = (meta & 1).sum(1).double()
     b = float(band)
     small = v * (v - 1) / 2
     big = b * (b - 1) / 2 + (v - b) * b
     return float((v <= b).double().mul(small).add((v > b).double() * big)
                  .sum())
+
+
+def _device_ms(torch, fn, n, flush=None):
+    """Device milliseconds per call of ``fn``, and the host's enqueue
+    milliseconds per call.  The n calls are queued behind a sleep kernel
+    long enough to cover their enqueue, so the events time the device
+    only.  Without ``flush``: one event pair around n back-to-back calls,
+    divided by n.  With it: ``flush()`` before each call and one event
+    pair per call, median."""
+    Event = torch.cuda.Event
+    torch.cuda.synchronize()
+    # host enqueue per call, and the sleep kernel's cycles per ms
+    t0 = time.perf_counter()
+    for _ in range(5):
+        if flush:
+            flush()
+        fn()
+    host_guess = (time.perf_counter() - t0) / 5 * 1e3
+    a, b = Event(enable_timing=True), Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(10**6)
+    b.record()
+    b.synchronize()
+    cycles_per_ms = 10**6 / a.elapsed_time(b)
+    torch.cuda.synchronize()
+
+    e_sleep = Event(enable_timing=True)
+    e_sleep.record()
+    torch.cuda._sleep(int(cycles_per_ms * (3 * n * host_guess + 20)))
+    t0 = time.perf_counter()
+    pairs = []
+    if flush is None:
+        pairs.append((Event(enable_timing=True), Event(enable_timing=True)))
+        pairs[0][0].record()
+        for _ in range(n):
+            fn()
+        pairs[0][1].record()
+    else:
+        for _ in range(n):
+            flush()
+            pairs.append((Event(enable_timing=True),
+                          Event(enable_timing=True)))
+            pairs[-1][0].record()
+            fn()
+            pairs[-1][1].record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    slept = e_sleep.elapsed_time(pairs[0][0])
+    if host_ms >= slept:
+        raise RuntimeError(f"the sleep ({slept:.2f} ms) did not cover the "
+                           f"enqueue ({host_ms:.2f} ms): device time would "
+                           f"include host time")
+    times = [x.elapsed_time(y) for x, y in pairs]
+    dev_ms = times[0] / n if flush is None else float(np.median(times))
+    return dev_ms, host_ms / n, times
+
+
+def _registers(name):
+    """Registers per thread that ptxas reported for ``name``'s kernel."""
+    from pyskani_tpu_torch.ops import _build
+    m = re.search(r"Used (\d+) registers",
+                  _build.build_logs.get(name, ""))
+    return int(m.group(1)) if m else None
 
 
 def phase_kernels(result, torch, dev, recorded, launches):
@@ -329,38 +449,44 @@ def phase_kernels(result, torch, dev, recorded, launches):
 
     cfg = ChainConfig()
     rng = np.random.default_rng(1)
-    cases = [("search", g) for g in recorded]
-    cases += [("ties", _tie_grid(rng, 64, 1000, torch, dev)),
-              ("ties", _tie_grid(rng, 256, 4096, torch, dev))]
+    cases = [("search", g, cfg) for g in recorded]
+    cases += [("ties", _tie_grid(rng, 1000, 64, torch, dev), cfg),
+              ("ties", _tie_grid(rng, 4096, 256, torch, dev), cfg)]
+    cases += [(label, _edge_grid(rng, pattern, 2048, PF, torch, dev),
+               ChainConfig(chain_band=band))
+              for label, (pattern, PF, band) in EDGES.items()]
     worst = 0.0
-    for label, (q, r, m) in cases:
-        s_k, t_k = chain_dp(q, r, m, cfg)
-        s_p, t_p = chain_dp_plain(q, r, m, cfg)
+    for label, (q, r, m), c in cases:
+        s_k, t_k = chain_dp(q, r, m, c)
+        s_p, t_p = chain_dp_plain(q, r, m, c)
         torch.cuda.synchronize()
         err = float((s_k - s_p).abs().max()) if s_k.numel() else 0.0
         worst = max(worst, err)
         if not (torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
                 and torch.equal(t_k, t_p)):
             raise AssertionError(f"chain_dp kernel != plain on a {label} "
-                                 f"grid {tuple(q.shape)} (max |dscore| "
-                                 f"{err})")
+                                 f"grid {tuple(q.shape)} band "
+                                 f"{c.chain_band} (max |dscore| {err})")
+        if label == "cross_chunk_tie" and not (t_k[:, 33] == 32).all():
+            raise AssertionError("chain_dp: the planted cross-chunk tie "
+                                 "did not resolve to the newer anchor")
     log(f"[kernels] chain_dp bit-equal to its plain version on "
-        f"{len(cases)} grids ({len(recorded)} from the search)")
+        f"{len(cases)} grids ({len(recorded)} from the search, 2 tie-heavy, "
+        f"edges {list(EDGES)})")
 
     q, r, m = recorded[0]
-    PF, NL = q.shape
+    R, PF = q.shape
+
+    def call():
+        chain_dp(q, r, m, cfg)
+
+    flush_buf = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     for _ in range(5):
-        chain_dp(q, r, m, cfg)
-    times = []
-    for _ in range(50):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        chain_dp(q, r, m, cfg)
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    ms = float(np.median(times))
+        call()
+    ms, host_ms, warm_times = _device_ms(torch, call, 200)
+    cold_ms, _, cold_times = _device_ms(torch, call, 30,
+                                        flush=flush_buf.zero_)
+    del flush_buf
     plain = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -369,15 +495,21 @@ def phase_kernels(result, torch, dev, recorded, launches):
         torch.cuda.synchronize()
         plain.append((time.perf_counter() - t0) * 1e3)
     plain_ms = float(np.median(plain))
-    bytes_ms = PF * NL * 20 / PEAK_BYTES * 1e3
+    bytes_ms = R * PF * 20 / PEAK_BYTES * 1e3
     tests = _dp_tests(m, cfg.chain_band)
     ops_ms = tests * DP_OPS_PER_TEST / PEAK_OPS * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    log(f"[kernels] chain_dp at [PF, NL] = [{PF}, {NL}]: kernel {ms:.4f} ms "
-        f"(median of 50, min {min(times):.4f}), plain {plain_ms:.2f} ms; "
-        f"bound {bound_ms:.5f} ms by {bound_by} (bytes {bytes_ms:.5f} ms, "
-        f"{tests:.0f} predecessor tests -> {ops_ms:.5f} ms)")
+    regs = _registers("chain_dp")
+    valid_cols = int((m & 1).sum())
+    log(f"[kernels] chain_dp at [R, PF] = [{R}, {PF}] ({valid_cols} valid "
+        f"anchors, {valid_cols / R:.1f} per row): device {ms:.5f} ms warm "
+        f"(200 back-to-back launches), {cold_ms:.5f} ms with L2 flushed "
+        f"(median of 30); wrapper host time {host_ms:.4f} ms per call; "
+        f"plain {plain_ms:.2f} ms; {regs} registers")
+    log(f"[kernels] bound {bound_ms:.5f} ms by {bound_by} (bytes "
+        f"{bytes_ms:.5f} ms, {tests:.0f} predecessor tests -> "
+        f"{ops_ms:.5f} ms): warm time {ms / bound_ms:.2f}x the bound")
     entry = dict(name="chain_dp", route="cuda",
                  source="pyskani_tpu_torch/csrc/chain_dp.cu",
                  replaces="pyskani_tpu/ops/chain_dp_pallas.py:47",
@@ -385,9 +517,11 @@ def phase_kernels(result, torch, dev, recorded, launches):
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                  library_ms=None)
     result["kernels"] = [entry]
-    result["kernel_detail"] = dict(shape=[PF, NL], times_ms=times,
-                                   plain_ms=plain, bytes_ms=bytes_ms,
-                                   ops_ms=ops_ms, predecessor_tests=tests)
+    result["kernel_detail"] = dict(
+        shape=[R, PF], valid_anchors=valid_cols, warm_ms=ms,
+        warm_batch_ms=warm_times, cold_ms=cold_ms, cold_times_ms=cold_times,
+        host_ms_per_call=host_ms, registers=regs, plain_ms=plain,
+        bytes_ms=bytes_ms, ops_ms=ops_ms, predecessor_tests=tests)
     return entry
 
 

@@ -323,15 +323,6 @@ def _grid_from_sorted_stream(rowid_s, w1, w2, R: int, PF: int):
     return w1g, w2g, row_bounds
 
 
-def _dp_dispatch(grid: dict, cfg: ChainConfig):
-    """The chain DP over [rows, PF] grids.  Rows (fragments) are
-    independent lanes of the kernel's transposed [PF, NL] layout."""
-    score_t, root_t = chain_dp(grid["qpos"].t().contiguous(),
-                               grid["rpos"].t().contiguous(),
-                               grid["meta"].t().contiguous(), cfg)
-    return score_t.t(), root_t.t()
-
-
 def _bin_reduce(values, flat_bin, n_bins, reduce, init):
     out = torch.full((n_bins,), init, dtype=values.dtype,
                      device=values.device)
@@ -659,7 +650,8 @@ def chain_block(refs: DeviceSketch, queries: DeviceSketch, *,
     R = P * NF
     w1g, w2g, row_bounds = _grid_from_sorted_stream(rowid_s, w1, w2, R, PF)
 
-    scores, roots = _dp_dispatch(_dp_grid_from_words(w1g, w2g, rbits), cfg)
+    grid = _dp_grid_from_words(w1g, w2g, rbits)
+    scores, roots = chain_dp(grid["qpos"], grid["rpos"], grid["meta"], cfg)
     pair_ids = torch.arange(P, device=dev, dtype=i64)
     _, r_frag_offs = _contig_layout(refs, fl)
     out = _post_dp_block(refs, queries, w1g, w2g, scores, roots, q_starts,

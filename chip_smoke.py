@@ -2,6 +2,7 @@
 """Drive the PyTorch port's main path on one GPU and check it.
 
     python3 chip_smoke.py [--seed 0] [--refs 512] [--queries 8] [--out FILE]
+                          [--profile]
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -16,19 +17,45 @@ Phases (any failure exits non-zero and prints no result line):
              families of refs/32 members mutated 0.5-5% from one random
              root each), sketched on the card, then ``--queries`` queries,
              each mutated 1% from a different family's root.  Each query
-             must hit exactly its family.  The chain-DP kernel's launch
-             count is reset just before this phase and read just after;
-             the first query's hits are checked against the CPU port;
-5. kernels — every DP grid the search fed the kernel, random tie-heavy
-             grids and edge grids (PF = 100, bands 0/1/25/32, anchors
-             resuming after 40 invalid columns, empty rows, a tie across
-             two 32-column chunks) through the CUDA kernel and its plain
+             must hit exactly its family; the first query's hits are
+             checked against the CPU port;
+5. fallback — the full-range per-pair path at E. coli scale: a store of
+             8 families (roots of 4.4-5.5 Mbp), each with 4 complete
+             single-contig members and 4 drafts cut into 600-1500
+             contigs, sketched on the card; one query per family, mutated
+             1% from its root.  The drafts' contig bucket puts the
+             complete members past the packed range, so they chain on
+             ``chain_pairs`` and the drafts on ``chain_block``.  Each
+             query must hit exactly its family; the complete members'
+             hits must equal a control store's (complete genomes only,
+             block path) and one query on a complete and a draft
+             reference the CPU port's, within 1e-6;
+6. giant    — (a) a ~300 Mbp genome in 3 contigs, one above the 2^27 bp
+             call buffer, sketched on the card in chunked calls and in
+             one call: bit-equal on every table row and field.  (b) one
+             family query's card sketch placed after seedless pad contigs
+             to 2.24 Gbp, through ``Database.query`` against the fallback
+             store: every reference takes ``chain_pairs``, and the hits
+             must equal the control query's (identity and reference
+             fraction within 2e-6, query fraction scaled by the length
+             ratio within 1e-5 relative);
+7. kernels — every DP grid the search, fallback and giant phases fed the
+             kernel, random tie-heavy grids and edge grids (PF = 100,
+             bands 0/1/25/32, anchors resuming after 40 invalid columns,
+             empty rows, a tie across two 32-column chunks, contig-local
+             positions in [2^30, 2^31) with reverse strands and gaps at
+             max_gap_length +- 1) through the CUDA kernel and its plain
              PyTorch version: score and root must be bit-equal.  Times
-             the kernel on the first search grid as device time (launches
-             queued behind a sleep kernel, so the host's enqueue is off
-             the clock), warm and with L2 flushed, the wrapper's host
-             time per call and the plain version, and computes the card's
-             bound for the work.
+             the kernel on the first search grid and on the first
+             ``chain_pairs`` grid of the fallback phase as device time
+             (launches queued behind a sleep kernel, so the host's
+             enqueue is off the clock), warm and with L2 flushed, the
+             wrapper's host time per call and the plain version, and
+             computes the card's bound for the work.
+
+The chain-DP kernel's launch count is reset just before each of the
+search, fallback and giant phases and read just after; each must launch
+it, and the per-pair path must launch it for every fallback query.
 
 The last three lines are the card line, one ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
@@ -57,6 +84,17 @@ PEAK_OPS = 67e12
 DP_OPS_PER_TEST = 20   # subtractions, negate, abs, compares, meta key
                        # test, int->f32, add, mul, sub, max-select
 ACGT = np.frombuffer(b"ACGT", np.uint8)
+# fallback phase: families, root lengths, members per family, draft contig
+# counts (each contig >= 100 bp, MIN_LENGTH_CONTIG), mutation range
+FALLBACK = dict(families=8, root_bp=(4_400_000, 5_500_000), complete=4,
+                drafts=4, draft_contigs=(600, 1_500), divergence=(0.005, 0.03))
+# giant phase: contig lengths of the chunked-sketch genome (the first above
+# the 2^27 bp call buffer; smaller fallbacks if one call does not fit the
+# card), and the pad contigs of the giant query (before, after, length)
+GIANT = dict(genomes=((160_000_000, 80_000_000, 60_000_000),
+                      (140_000_000, 40_000_000, 20_000_000),
+                      (136_000_000, 8_000_000, 6_000_000)),
+             pads=(30, 10, 56_000_000))
 
 
 def log(*a):
@@ -147,7 +185,7 @@ def phase_goldens(result, torch, dev):
     log("[goldens] all five goldens hold at 4 decimals")
 
 
-def phase_search(result, torch, dev, args, recorded):
+def phase_search(result, torch, dev, args, rec):
     import pyskani_tpu_torch
     from pyskani_tpu_torch import database as dbmod
     from pyskani_tpu_torch.ops import chain_dp as dp_mod
@@ -219,7 +257,7 @@ def phase_search(result, torch, dev, args, recorded):
     launches = dp_mod.chain_dp.launches
     if launches == 0:
         raise AssertionError("the search never launched the chain-DP kernel")
-    shapes = sorted({tuple(g[0].shape) for g in recorded})
+    shapes = sorted({tuple(g[0].shape) for g in rec.grids_of("search")})
     screened_out = 1.0 - sum(passed) / (len(passed) * args.refs)
     steady = q_times[1:] or q_times
     log(f"[search] {len(queries)} queries: first {q_times[0]:.3f} s "
@@ -301,6 +339,407 @@ def _profile(torch, fn):
         log(f"[profile]   {t['device_us'] / 1e3:9.3f} ms x{t['count']:5d} "
             f"{t['name']}")
     return out
+
+
+class Recorder:
+    """Keeps every grid the pipelines feed the chain-DP kernel and counts
+    the kernel's launches per phase and path.
+
+    It wraps ``chain_dp`` as ``ops/chain.py`` calls it (a clone of each
+    CUDA grid while ``keep`` is set) and ``chain_block`` / ``chain_pairs``
+    as ``engine/batch.py`` calls them (the wrapper's own launch count
+    before and after each call)."""
+
+    PATHS = ("chain_block", "chain_pairs")
+
+    def __init__(self):
+        from pyskani_tpu_torch.engine import batch as batch_mod
+        from pyskani_tpu_torch.ops import chain as chain_mod
+        from pyskani_tpu_torch.ops import chain_dp as dp_mod
+        self.grids = []          # (phase, path, (qpos, rpos, meta))
+        self.launches = {}       # (phase, path) -> launches
+        self.phase = None
+        self.keep = True
+        self._path = [None]
+        self._mods = (batch_mod, chain_mod, dp_mod)
+        self._real = {}
+
+    def __enter__(self):
+        batch_mod, chain_mod, dp_mod = self._mods
+        real_dp = self._real["chain_dp"] = chain_mod.chain_dp
+
+        def record_dp(q, r, m, cfg):
+            if self.keep and q.is_cuda:
+                self.grids.append((self.phase, self._path[-1],
+                                   (q.clone(), r.clone(), m.clone())))
+            return real_dp(q, r, m, cfg)
+
+        chain_mod.chain_dp = record_dp
+        for name in self.PATHS:
+            fn = self._real[name] = getattr(batch_mod, name)
+            setattr(batch_mod, name, self._counted(name, fn, dp_mod))
+        return self
+
+    def _counted(self, name, fn, dp_mod):
+        def call(*a, **kw):
+            before = dp_mod.chain_dp.launches
+            self._path.append(name)
+            try:
+                return fn(*a, **kw)
+            finally:
+                self._path.pop()
+                key = (self.phase, name)
+                self.launches[key] = self.launches.get(key, 0) + \
+                    dp_mod.chain_dp.launches - before
+        return call
+
+    def __exit__(self, *exc):
+        batch_mod, chain_mod, _ = self._mods
+        chain_mod.chain_dp = self._real["chain_dp"]
+        for name in self.PATHS:
+            setattr(batch_mod, name, self._real[name])
+        return False
+
+    def grids_of(self, phase, path=None):
+        return [g for ph, pa, g in self.grids
+                if ph == phase and (path is None or pa == path)]
+
+    def launches_of(self, phase, path):
+        return self.launches.get((phase, path), 0)
+
+
+def _draft_contigs(rng, g: bytes, n: int, min_len: int = 100):
+    """Cut a genome into n contigs of at least min_len bp (Dirichlet
+    lengths)."""
+    extra = len(g) - n * min_len
+    lens = min_len + np.floor(rng.dirichlet(np.ones(n)) * extra).astype(int)
+    lens[-1] += len(g) - lens.sum()
+    ends = np.cumsum(lens)
+    return [g[e - n_:e] for e, n_ in zip(ends, lens)]
+
+
+def _hit_diff(a, b) -> float:
+    return max(abs(a.identity - b.identity),
+               abs(a.query_fraction - b.query_fraction),
+               abs(a.reference_fraction - b.reference_fraction))
+
+
+def phase_fallback(result, torch, dev, args, rec):
+    """The full-range per-pair path under ``Database.query`` at E. coli
+    scale; returns (database, queries, hits) for the giant phase."""
+    import pyskani_tpu_torch
+    from pyskani_tpu_torch import database as dbmod
+    from pyskani_tpu_torch.ops import chain_dp as dp_mod
+
+    F = FALLBACK
+    rng = np.random.default_rng(args.seed + 1)
+    root_len = rng.integers(F["root_bp"][0], F["root_bp"][1] + 1,
+                            F["families"])
+    roots = [ACGT[rng.integers(0, 4, int(L), dtype=np.uint8)]
+             for L in root_len]
+    db = pyskani_tpu_torch.Database()
+    fams, complete, drafts = [], [], []
+    bp, sketch_s, n_contigs = 0, 0.0, []
+    for f, root in enumerate(roots):
+        members = []
+        for m in range(F["complete"] + F["drafts"]):
+            d = rng.uniform(*F["divergence"])
+            g = mutate(rng, root, d, d / 10).tobytes()
+            if m < F["complete"]:
+                name, contigs = f"c{f}_m{m}", [g]
+                complete.append(name)
+            else:
+                n = int(rng.integers(F["draft_contigs"][0],
+                                     F["draft_contigs"][1] + 1))
+                name, contigs = f"d{f}_m{m}", _draft_contigs(rng, g, n)
+                drafts.append(name)
+                n_contigs.append(n)
+            t0 = time.perf_counter()
+            db.sketch(name, *contigs)
+            torch.cuda.synchronize()
+            sketch_s += time.perf_counter() - t0
+            bp += len(g)
+            members.append(name)
+        fams.append(members)
+    log(f"[fallback] {len(complete) + len(drafts)} references "
+        f"({bp / 1e6:.1f} Mbp; drafts of {min(n_contigs)}-{max(n_contigs)} "
+        f"contigs) sketched on the card in {sketch_s:.2f} s: "
+        f"{bp / 1e6 / sketch_s:.1f} Mbp/s")
+
+    queries = [(f"q{f}", mutate(rng, root, 0.01, 0.001).tobytes())
+               for f, root in enumerate(roots)]
+    by_name = {m.name: m for m in db._markers}
+    routes = [dbmod._partition_blockable(by_name, fam) for fam in fams]
+    for fam, (block, fb, cb, cap) in zip(fams, routes):
+        want_fb = [n for n in fam if n.startswith("c")]
+        if fb != want_fb:
+            raise AssertionError(f"routing of {fam}: per-pair {fb}, "
+                                 f"expected {want_fb} (bucket {cb}, cap "
+                                 f"{cap})")
+    log(f"[fallback] routing: contig buckets "
+        f"{sorted({r[2] for r in routes})}, packed caps "
+        f"{sorted({r[3] for r in routes})} bp; complete members per-pair")
+
+    rec.phase = "fallback"
+    dp_mod.chain_dp.launches = 0
+    q_times, all_hits, pairs_per_query = [], [], []
+    for (qname, q), fam in zip(queries, fams):
+        before = rec.launches_of("fallback", "chain_pairs")
+        t0 = time.perf_counter()
+        hits = db.query(qname, q, learned_ani=False)
+        torch.cuda.synchronize()
+        q_times.append(time.perf_counter() - t0)
+        pairs_per_query.append(rec.launches_of("fallback", "chain_pairs") -
+                               before)
+        all_hits.append(hits)
+        if sorted(h.reference_name for h in hits) != sorted(fam):
+            raise AssertionError(f"{qname}: hits "
+                                 f"{[h.reference_name for h in hits]} != "
+                                 f"{fam}")
+        for h in hits:
+            if not (0.9 < h.identity <= 1.0 and 0.0 < h.query_fraction <= 1
+                    and 0.0 < h.reference_fraction <= 1.0):
+                raise AssertionError(f"{qname}: implausible hit {h}")
+    launches = dp_mod.chain_dp.launches
+    rec.phase = None
+    if min(pairs_per_query) < 1:
+        raise AssertionError(f"chain_pairs launched the DP "
+                             f"{pairs_per_query} times per query")
+    per_path = {p: rec.launches_of("fallback", p) for p in Recorder.PATHS}
+    if sum(per_path.values()) != launches:
+        raise AssertionError(f"launches {launches} != per path {per_path}")
+    pair_shapes = sorted({tuple(g[0].shape) for g in
+                          rec.grids_of("fallback", "chain_pairs")})
+    block_shapes = sorted({tuple(g[0].shape) for g in
+                           rec.grids_of("fallback", "chain_block")})
+    steady = q_times[1:] or q_times
+    log(f"[fallback] {len(queries)} queries, each hits exactly its family: "
+        f"{len(steady) / sum(steady):.2f} queries/s after the first "
+        f"({q_times[0]:.3f} s, stacks the store); chain-DP launches "
+        f"{per_path}, chain_pairs grids {pair_shapes}, chain_block grids "
+        f"{block_shapes}")
+
+    # control: the complete genomes alone, where the block path serves them
+    rec.phase = "fallback_checks"
+    ctrl = pyskani_tpu_torch.Database()
+    for name in complete:
+        ctrl._register_sketch(db._storage.load(name))
+    worst_ctrl = 0.0
+    for (qname, q), hits in zip(queries, all_hits):
+        want = {h.reference_name: h for h in
+                ctrl.query(qname, q, learned_ani=False)}
+        got = {h.reference_name: h for h in hits
+               if h.reference_name.startswith("c")}
+        if sorted(want) != sorted(got):
+            raise AssertionError(f"{qname}: control hits {sorted(want)} != "
+                                 f"{sorted(got)}")
+        worst_ctrl = max([worst_ctrl] + [_hit_diff(got[n], want[n])
+                                         for n in got])
+    if worst_ctrl > 1e-6:
+        raise AssertionError(f"per-pair hits differ from the control's block "
+                             f"hits by {worst_ctrl}")
+    log(f"[fallback] complete members (per-pair) vs a control store "
+        f"(block path): max |diff| {worst_ctrl:.3g}")
+
+    # the CPU port on one complete and one draft reference
+    cpu = pyskani_tpu_torch.Database(device="cpu")
+    pick = [fams[0][0], fams[0][-1]]
+    for name in pick:
+        cpu._register_sketch(db._storage.load(name))
+    cpu_hits = cpu.query(queries[0][0], queries[0][1], learned_ani=False)
+    card = {h.reference_name: h for h in all_hits[0]}
+    if sorted(h.reference_name for h in cpu_hits) != sorted(pick):
+        raise AssertionError(f"CPU port hits {cpu_hits}")
+    worst_cpu = max(_hit_diff(h, card[h.reference_name]) for h in cpu_hits)
+    if worst_cpu > 1e-6:
+        raise AssertionError(f"card vs CPU port: max diff {worst_cpu}")
+    rec.phase = None
+    log(f"[fallback] {queries[0][0]} on {pick} vs the CPU port: max |diff| "
+        f"{worst_cpu:.3g}")
+    result["fallback"] = dict(
+        refs=len(complete) + len(drafts), bp=bp, sketch_s=sketch_s,
+        draft_contigs=[min(n_contigs), max(n_contigs)],
+        contig_buckets=sorted({r[2] for r in routes}), query_s=q_times,
+        queries_per_s=len(queries) / sum(q_times),
+        steady_queries_per_s=len(steady) / sum(steady),
+        dp_launches=launches, dp_launches_per_path=per_path,
+        pairs_launches_per_query=pairs_per_query,
+        pair_grid_shapes=[list(x) for x in pair_shapes],
+        block_grid_shapes=[list(x) for x in block_shapes],
+        control_max_diff=worst_ctrl, cpu_check_max_diff=worst_cpu)
+    return db, queries, all_hits, launches
+
+
+def _embed_giant(host, pre: int, post: int, pad_len: int):
+    """A giant multi-contig genome made from ``host``'s sketch: its contigs
+    (with their seeds and markers) placed after ``pre`` seedless pad
+    contigs of ``pad_len`` bp and followed by ``post`` more.  Only the
+    contig ids shift: the engine never reads the sequence."""
+    import dataclasses
+
+    import torch
+
+    from pyskani_tpu_torch.ops.sketch import (U32_MAX, HostSketch,
+                                              contig_budget_for)
+    d = host.device
+    nc = int(d.n_contigs)
+    total_c = pre + nc + post
+    clens = torch.zeros(contig_budget_for(total_c), dtype=torch.int32,
+                        device=d.device)
+    clens[:pre] = pad_len
+    clens[pre:pre + nc] = d.contig_lengths[:nc]
+    clens[pre + nc:total_c] = pad_len
+    live = torch.arange(d.seed_budget, device=d.device) < d.n_seeds
+
+    def shift(t):
+        return torch.where(live, t + pre, t)
+
+    lengths = [pad_len] * pre + list(host.lengths) + [pad_len] * post
+    dev2 = dataclasses.replace(
+        d, contig_ids=shift(d.contig_ids), p_contig_ids=shift(d.p_contig_ids),
+        contig_lengths=clens,
+        n_contigs=torch.tensor(total_c, dtype=torch.int32, device=d.device),
+        total_len=torch.tensor(min(sum(lengths), U32_MAX),
+                               dtype=torch.int64, device=d.device))
+    names = ([f"pad_{i}" for i in range(pre)] + host.contig_names +
+             [f"pad_{pre + i}" for i in range(post)])
+    return HostSketch(name=host.name, contig_names=names, device=dev2,
+                      lengths=lengths)
+
+
+def _timed(torch, fn):
+    """(result, wall s, peak device GiB above what was allocated before)
+    of one call."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, \
+        (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def phase_giant(result, torch, dev, args, rec, db, queries, fb_hits):
+    from pyskani_tpu_torch import database as dbmod
+    from pyskani_tpu_torch.ops import chain_dp as dp_mod
+    from pyskani_tpu_torch.ops.sketch import (FIELDS, GIANT_SKETCH_BUFFER,
+                                              sketch_genome_device)
+    from pyskani_tpu_torch.params import SketchParams
+
+    # ---- (a) chunked sketching on the card ----
+    params = SketchParams()
+    buf = GIANT_SKETCH_BUFFER
+    rng = np.random.default_rng(args.seed + 2)
+    out = None
+    for sizes in GIANT["genomes"]:
+        if max(sizes) <= buf:
+            raise AssertionError(f"giant genome {sizes}: no contig is split")
+        contigs = [ACGT[rng.integers(0, 4, n, dtype=np.uint8)].tobytes()
+                   for n in sizes]
+        total = sum(sizes)
+        chunked, chunk_s, chunk_gib = _timed(
+            torch, lambda: sketch_genome_device("giant", contigs, params,
+                                                device=dev))
+        try:
+            single, single_s, single_gib = _timed(
+                torch, lambda: sketch_genome_device(
+                    "giant", contigs, params, max_buffer=total, device=dev))
+        except torch.cuda.OutOfMemoryError:
+            log(f"[giant] one call of {total} bp does not fit the card; "
+                f"trying a smaller genome")
+            del chunked
+            torch.cuda.empty_cache()
+            continue
+        out = (sizes, chunked, single)
+        break
+    if out is None:
+        raise AssertionError("no giant genome fits one sketch call")
+    sizes, chunked, single = out
+    a, b = chunked.device, single.device
+    n, m = int(b.n_seeds), int(b.n_markers)
+    rows = {"kmers": n, "positions": n, "contig_ids": n, "strands": n,
+            "own_mult": n, "p_positions": n, "p_contig_ids": n,
+            "p_own_mult": n, "markers_hi": m, "markers_lo": m}
+    for f in FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        if f in rows:
+            x, y = x[:rows[f]], y[:rows[f]]
+        if not torch.equal(x, y):
+            raise AssertionError(f"chunked sketch differs from one call in "
+                                 f"{f}")
+    log(f"[giant] {sum(sizes) / 1e6:.1f} Mbp in contigs {list(sizes)} "
+        f"(call buffer {buf}): chunked {chunk_s:.2f} s, peak +"
+        f"{chunk_gib:.2f} GiB; one call {single_s:.2f} s, peak +"
+        f"{single_gib:.2f} GiB; bit-equal ({n} seeds, {m} markers; every "
+        f"field, table fields on their {n}/{m} rows)")
+    del chunked, single, a, b
+    torch.cuda.empty_cache()
+
+    # ---- (b) a query of >= 2^30 bp through Database.query ----
+    qname, q = queries[0]
+    control = {h.reference_name: h for h in fb_hits[0]}
+    q_sk = sketch_genome_device(qname, [q], params, device=dev)
+    pre, post, pad = GIANT["pads"]
+    giant = _embed_giant(q_sk, pre, post, pad)
+    if giant.total_len < 2_200_000_000:
+        raise AssertionError(f"giant query of {giant.total_len} bp")
+    real_sketch = dbmod.sketch_genome_device
+    dbmod.sketch_genome_device = lambda *a, **k: giant
+    rec.phase = "giant"
+    dp_mod.chain_dp.launches = 0
+    try:
+        # timed with no grid kept, so neither the wall time nor the peak
+        # holds the harness's copies; a second, untimed query keeps them
+        rec.keep = False
+        hits, wall_s, peak_gib = _timed(torch, lambda: db.query(
+            qname + "_giant", b"A" * 600, learned_ani=False))
+        launches = dp_mod.chain_dp.launches
+        per_path = {p: rec.launches_of("giant", p) for p in Recorder.PATHS}
+        rec.keep = True
+        kept = db.query(qname + "_giant", b"A" * 600, learned_ani=False)
+    finally:
+        dbmod.sketch_genome_device = real_sketch
+        rec.phase = None
+        rec.keep = True
+    if [repr(h) for h in kept] != [repr(h) for h in hits]:
+        raise AssertionError(f"giant query repeated: {kept} != {hits}")
+    if per_path["chain_block"] != 0 or per_path["chain_pairs"] < 1 or \
+            per_path["chain_pairs"] != launches:
+        raise AssertionError(f"giant query launches {launches}, per path "
+                             f"{per_path}: every pair must take chain_pairs")
+    if sorted(h.reference_name for h in hits) != sorted(control):
+        raise AssertionError(f"giant hits {hits} != control {control}")
+    scale = q_sk.total_len / giant.total_len
+    worst = dict(identity=0.0, af_ref=0.0, af_query_rel=0.0)
+    for h in hits:
+        c = control[h.reference_name]
+        worst["identity"] = max(worst["identity"],
+                                abs(h.identity - c.identity))
+        worst["af_ref"] = max(worst["af_ref"], abs(h.reference_fraction -
+                                                   c.reference_fraction))
+        worst["af_query_rel"] = max(
+            worst["af_query_rel"],
+            abs(h.query_fraction / (c.query_fraction * scale) - 1.0))
+    if worst["identity"] > 2e-6 or worst["af_ref"] > 2e-6 or \
+            worst["af_query_rel"] > 1e-5:
+        raise AssertionError(f"giant query vs control: {worst}")
+    shapes = sorted({tuple(g[0].shape) for g in rec.grids_of("giant")})
+    log(f"[giant] query of {giant.total_len / 1e9:.3f} Gbp "
+        f"({len(giant.lengths)} contigs) through Database.query: "
+        f"{len(hits)} hits equal the control's ({worst}); {wall_s:.2f} s, "
+        f"peak +{peak_gib:.2f} GiB; chain_pairs launches {launches}, grids "
+        f"{shapes}")
+    result["giant"] = dict(
+        sketch=dict(contigs=list(sizes), buffer=buf, chunked_s=chunk_s,
+                    chunked_peak_gib=chunk_gib, single_s=single_s,
+                    single_peak_gib=single_gib, n_seeds=n, n_markers=m),
+        query=dict(total_bp=giant.total_len, contigs=len(giant.lengths),
+                   wall_s=wall_s, peak_gib=peak_gib, hits=len(hits),
+                   max_diff=worst, dp_launches=launches,
+                   grid_shapes=[list(x) for x in shapes]))
+    return launches
 
 
 def _tie_grid(rng, R, PF, torch, dev):
@@ -443,38 +882,53 @@ def _registers(name):
     return int(m.group(1)) if m else None
 
 
-def phase_kernels(result, torch, dev, recorded, launches):
-    from pyskani_tpu_torch.ops.chain import ChainConfig
+def _high_grid(rng, R, PF, max_gap, torch, dev):
+    """[R, PF] near-diagonal rows at contig-local positions in
+    [2^30, 2^31 - 1): successive anchors differ by steps whose gap
+    |dr - dq| is max_gap - 1, max_gap, max_gap + 1 or small, on the
+    forward or the reverse strand (per row), one or two ref contigs per
+    row; valid anchors are a prefix of random length, and a tenth of the
+    rows end within a step of 2^31 - 1."""
+    dr = rng.integers(1, 3001, (R, PF))
+    g = rng.choice([max_gap - 1, max_gap, max_gap + 1, 0, 1, 7], (R, PF))
+    dq = dr + rng.choice([-1, 1], (R, PF)) * g
+    dq = np.where(dq <= 0, dr + g, dq)
+    dr[:, 0] = dq[:, 0] = 0
+    top = (1 << 31) - 2
+    span_r, span_q = dr.sum(1), dq.sum(1)
+    r0 = rng.integers(1 << 30, top - span_r)
+    r0[: R // 10] = top - span_r[: R // 10]
+    rev = rng.random(R) < 0.5
+    q0 = rng.integers((1 << 30) + span_q, top - span_q)
+    rp = r0[:, None] + np.cumsum(dr, 1)
+    qp = q0[:, None] + np.where(rev[:, None], -1, 1) * np.cumsum(dq, 1)
+    cid = (rng.random((R, PF)) < 0.05).cumsum(1) % 2
+    ok = np.arange(PF)[None, :] < rng.integers(0, PF + 1, (R, 1))
+    assert rp.min() >= 1 << 30 and qp.min() >= 1 << 30 and \
+        max(rp.max(), qp.max()) < (1 << 31) - 1
+    return _planes(torch, dev, qp, rp, cid,
+                   np.repeat(rev[:, None], PF, 1), ok)
+
+
+def _row_profile(grids):
+    """Valid anchors per row over grids [R, PF]: rows, share of empty rows,
+    mean over all rows and over rows with anchors, max."""
+    v = np.concatenate([(m & 1).sum(1).cpu().numpy() for _, _, m in grids])
+    busy = v[v > 0]
+    return dict(rows=int(v.size), empty_share=float(1 - busy.size / v.size),
+                mean_all=float(v.mean()),
+                mean_nonempty=float(busy.mean()) if busy.size else 0.0,
+                max=int(v.max()))
+
+
+def _time_kernel(torch, dev, grid, cfg, label, n_plain=3):
+    """Device ms of the kernel on ``grid`` (warm: 200 launches back to
+    back; cold: L2 flushed before each of 30), the wrapper's host ms per
+    call, the plain version's ms (median of ``n_plain``) and the card's
+    bound."""
     from pyskani_tpu_torch.ops.chain_dp import chain_dp, chain_dp_plain
 
-    cfg = ChainConfig()
-    rng = np.random.default_rng(1)
-    cases = [("search", g, cfg) for g in recorded]
-    cases += [("ties", _tie_grid(rng, 1000, 64, torch, dev), cfg),
-              ("ties", _tie_grid(rng, 4096, 256, torch, dev), cfg)]
-    cases += [(label, _edge_grid(rng, pattern, 2048, PF, torch, dev),
-               ChainConfig(chain_band=band))
-              for label, (pattern, PF, band) in EDGES.items()]
-    worst = 0.0
-    for label, (q, r, m), c in cases:
-        s_k, t_k = chain_dp(q, r, m, c)
-        s_p, t_p = chain_dp_plain(q, r, m, c)
-        torch.cuda.synchronize()
-        err = float((s_k - s_p).abs().max()) if s_k.numel() else 0.0
-        worst = max(worst, err)
-        if not (torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
-                and torch.equal(t_k, t_p)):
-            raise AssertionError(f"chain_dp kernel != plain on a {label} "
-                                 f"grid {tuple(q.shape)} band "
-                                 f"{c.chain_band} (max |dscore| {err})")
-        if label == "cross_chunk_tie" and not (t_k[:, 33] == 32).all():
-            raise AssertionError("chain_dp: the planted cross-chunk tie "
-                                 "did not resolve to the newer anchor")
-    log(f"[kernels] chain_dp bit-equal to its plain version on "
-        f"{len(cases)} grids ({len(recorded)} from the search, 2 tie-heavy, "
-        f"edges {list(EDGES)})")
-
-    q, r, m = recorded[0]
+    q, r, m = grid
     R, PF = q.shape
 
     def call():
@@ -488,40 +942,107 @@ def phase_kernels(result, torch, dev, recorded, launches):
                                         flush=flush_buf.zero_)
     del flush_buf
     plain = []
-    for _ in range(3):
+    for _ in range(n_plain):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         chain_dp_plain(q, r, m, cfg)
         torch.cuda.synchronize()
         plain.append((time.perf_counter() - t0) * 1e3)
-    plain_ms = float(np.median(plain))
     bytes_ms = R * PF * 20 / PEAK_BYTES * 1e3
     tests = _dp_tests(m, cfg.chain_band)
     ops_ms = tests * DP_OPS_PER_TEST / PEAK_OPS * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    regs = _registers("chain_dp")
-    valid_cols = int((m & 1).sum())
-    log(f"[kernels] chain_dp at [R, PF] = [{R}, {PF}] ({valid_cols} valid "
-        f"anchors, {valid_cols / R:.1f} per row): device {ms:.5f} ms warm "
-        f"(200 back-to-back launches), {cold_ms:.5f} ms with L2 flushed "
-        f"(median of 30); wrapper host time {host_ms:.4f} ms per call; "
-        f"plain {plain_ms:.2f} ms; {regs} registers")
-    log(f"[kernels] bound {bound_ms:.5f} ms by {bound_by} (bytes "
+    prof = _row_profile([grid])
+    log(f"[kernels] {label} grid [R, PF] = [{R}, {PF}] (valid anchors per "
+        f"row: mean {prof['mean_all']:.1f}, {prof['mean_nonempty']:.1f} "
+        f"over the {1 - prof['empty_share']:.3f} of rows with anchors, max "
+        f"{prof['max']}): device {ms:.5f} ms warm (200 back-to-back "
+        f"launches), {cold_ms:.5f} ms with L2 flushed (median of 30); "
+        f"wrapper host time {host_ms:.4f} ms per call; plain "
+        f"{float(np.median(plain)):.2f} ms")
+    log(f"[kernels] {label} bound {bound_ms:.5f} ms by {bound_by} (bytes "
         f"{bytes_ms:.5f} ms, {tests:.0f} predecessor tests -> "
         f"{ops_ms:.5f} ms): warm time {ms / bound_ms:.2f}x the bound")
+    return dict(shape=[R, PF], rows=prof, warm_ms=ms,
+                warm_batch_ms=warm_times, cold_ms=cold_ms,
+                cold_times_ms=cold_times, host_ms_per_call=host_ms,
+                plain_ms=plain, plain_median_ms=float(np.median(plain)),
+                bytes_ms=bytes_ms, ops_ms=ops_ms, predecessor_tests=tests,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_kernels(result, torch, dev, rec, launches):
+    from pyskani_tpu_torch.ops.chain import ChainConfig
+    from pyskani_tpu_torch.ops.chain_dp import chain_dp, chain_dp_plain
+
+    cfg = ChainConfig()
+    rng = np.random.default_rng(1)
+    cases = [(f"{phase}/{path}", g, cfg) for phase, path, g in rec.grids]
+    n_recorded = len(cases)
+    cases += [("ties", _tie_grid(rng, 1000, 64, torch, dev), cfg),
+              ("ties", _tie_grid(rng, 4096, 256, torch, dev), cfg)]
+    cases += [(label, _edge_grid(rng, pattern, 2048, PF, torch, dev),
+               ChainConfig(chain_band=band))
+              for label, (pattern, PF, band) in EDGES.items()]
+    cases.append(("high_positions", _high_grid(
+        rng, 2048, 128, cfg.max_gap_length, torch, dev), cfg))
+    worst = 0.0
+    plain_s = {}
+    for label, (q, r, m), c in cases:
+        s_k, t_k = chain_dp(q, r, m, c)
+        t0 = time.perf_counter()
+        s_p, t_p = chain_dp_plain(q, r, m, c)
+        torch.cuda.synchronize()
+        plain_s[label] = plain_s.get(label, 0.0) + time.perf_counter() - t0
+        err = float((s_k - s_p).abs().max()) if s_k.numel() else 0.0
+        worst = max(worst, err)
+        if not (torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+                and torch.equal(t_k, t_p)):
+            raise AssertionError(f"chain_dp kernel != plain on a {label} "
+                                 f"grid {tuple(q.shape)} band "
+                                 f"{c.chain_band} (max |dscore| {err})")
+        if label == "cross_chunk_tie" and not (t_k[:, 33] == 32).all():
+            raise AssertionError("chain_dp: the planted cross-chunk tie "
+                                 "did not resolve to the newer anchor")
+        if label == "high_positions" and not (s_k > c.anchor_score).any():
+            raise AssertionError("chain_dp: no chain on the high-position "
+                                 "grid")
+    counts = {}
+    for label, _, _ in cases[:n_recorded]:
+        counts[label] = counts.get(label, 0) + 1
+    log(f"[kernels] chain_dp bit-equal to its plain version on "
+        f"{len(cases)} grids (recorded {counts}, 2 tie-heavy, edges "
+        f"{list(EDGES)}, high_positions); plain version seconds per kind "
+        f"{ {k: round(v, 3) for k, v in plain_s.items()} }")
+
+    search = _time_kernel(torch, dev, rec.grids_of("search")[0], cfg,
+                          "search")
+    # the fallback's largest per-pair grid (NF is 256 or 384 by query size)
+    pairs_grid = max(rec.grids_of("fallback", "chain_pairs"),
+                     key=lambda g: g[0].shape[0])
+    fallback = _time_kernel(torch, dev, pairs_grid, cfg, "fallback")
+    giant = _time_kernel(torch, dev, rec.grids_of("giant", "chain_pairs")[0],
+                         cfg, "giant", n_plain=1)
+    profiles = {ph: _row_profile(rec.grids_of(ph, "chain_pairs"))
+                for ph in ("fallback", "giant")}
+    log(f"[kernels] chain_pairs row profiles (valid anchors per row): "
+        f"{profiles}")
+    regs = _registers("chain_dp")
+    log(f"[kernels] chain_dp: {regs} registers")
     entry = dict(name="chain_dp", route="cuda",
                  source="pyskani_tpu_torch/csrc/chain_dp.cu",
                  replaces="pyskani_tpu/ops/chain_dp_pallas.py:47",
-                 launches=launches, max_abs_err=worst, ms=ms,
-                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 launches=launches, max_abs_err=worst, ms=search["warm_ms"],
+                 plain_ms=search["plain_median_ms"],
+                 bound_ms=search["bound_ms"], bound_by=search["bound_by"],
                  library_ms=None)
     result["kernels"] = [entry]
     result["kernel_detail"] = dict(
-        shape=[R, PF], valid_anchors=valid_cols, warm_ms=ms,
-        warm_batch_ms=warm_times, cold_ms=cold_ms, cold_times_ms=cold_times,
-        host_ms_per_call=host_ms, registers=regs, plain_ms=plain,
-        bytes_ms=bytes_ms, ops_ms=ops_ms, predecessor_tests=tests)
+        search=search, fallback=fallback, giant=giant,
+        pair_row_profiles=profiles,
+        registers=regs, grids_checked=len(cases), recorded=counts,
+        plain_s=plain_s)
     return entry
 
 
@@ -559,21 +1080,19 @@ def main() -> int:
     log(f"[card] {card}")
     phase_goldens(result, torch, dev)
 
-    from pyskani_tpu_torch.ops import chain as chain_mod
-    real_dp = chain_mod.chain_dp
-    recorded = []
-
-    def record_dp(q, r, m, cfg):
-        if q.is_cuda:
-            recorded.append((q.clone(), r.clone(), m.clone()))
-        return real_dp(q, r, m, cfg)
-
-    chain_mod.chain_dp = record_dp
-    try:
-        launches = phase_search(result, torch, dev, args, recorded)
-    finally:
-        chain_mod.chain_dp = real_dp
-    entry = phase_kernels(result, torch, dev, recorded, launches)
+    with Recorder() as rec:
+        rec.phase = "search"
+        search_launches = phase_search(result, torch, dev, args, rec)
+        rec.phase = None
+        db, queries, fb_hits, fb_launches = phase_fallback(
+            result, torch, dev, args, rec)
+        giant_launches = phase_giant(result, torch, dev, args, rec, db,
+                                     queries, fb_hits)
+    del db
+    launches = search_launches + fb_launches + giant_launches
+    log(f"[launches] chain-DP kernel on the main paths: search "
+        f"{search_launches}, fallback {fb_launches}, giant {giant_launches}")
+    entry = phase_kernels(result, torch, dev, rec, launches)
     result["total_s"] = time.perf_counter() - t_start
     log(f"[done] {result['total_s']:.1f} s")
     if args.out:

@@ -14,7 +14,7 @@ from typing import List, Mapping
 import numpy as np
 import torch
 
-from .ops.sketch import FIELDS, DeviceSketch, HostSketch
+from .ops.sketch import FIELDS, U32_MAX, DeviceSketch, HostSketch
 
 # the JAX package's host dtype of every DeviceSketch field
 NUMPY_DTYPES = dict(
@@ -52,6 +52,12 @@ def sketch_from_numpy(fields, name: str, contig_names: List[str],
 
 def sketch_to_numpy(host: HostSketch) -> dict:
     """The ``DeviceSketch`` fields of a port sketch as numpy arrays with
-    the JAX package's dtypes."""
-    return {f: getattr(host.device, f).cpu().numpy().astype(NUMPY_DTYPES[f])
-            for f in FIELDS}
+    the JAX package's dtypes.  ``total_len`` saturates at 2^32-1, as the
+    JAX package stores it, instead of wrapping."""
+    out = {}
+    for f in FIELDS:
+        t = getattr(host.device, f).cpu()
+        if f == "total_len":
+            t = t.clamp(max=U32_MAX)
+        out[f] = t.numpy().astype(NUMPY_DTYPES[f])
+    return out

@@ -2,15 +2,18 @@
 
 Port of the in-memory path of the JAX package's ``database.py``: the same
 constructor defaults, ``sketch`` and ``query`` (batched marker screen,
-then the block chain pipeline over the shortlist, then the regression and
-aligned-fraction filters, then ``Hit``).  Tensors live on ``device``,
-which is the card unless the caller passes ``device="cpu"``; there is no
-silent fallback to the CPU.
+then the chain pipelines over the shortlist, then the regression and
+aligned-fraction filters, then ``Hit``).  Shortlisted references chain on
+the packed block pipeline (``chain_block``) unless a contig of theirs
+lies past its position range, or the query is 2^30 bp or more: those
+pairs take the full-range per-pair pipeline (``chain_pairs``).  Genomes
+above the single-call sketch buffer are sketched in chunks.  Tensors
+live on ``device``, which is the card unless the caller passes
+``device="cpu"``; there is no silent fallback to the CPU.
 
 Not ported yet (each raises ``NotImplementedError``): on-disk stores
 (``path=``, ``open``, ``load``, ``save``), ``sketch_many``, ``est_ci``,
-the full-range per-pair fallback for references past the packed grid
-range, genomes above the single-call sketch buffer, and k other than 15.
+and k other than 15.
 """
 
 from __future__ import annotations
@@ -24,8 +27,8 @@ import torch
 
 from . import regression
 from .db.storage import MarkerSketch, MemoryStorage
-from .engine.batch import (check_overflow, one_vs_many, repad_sketch,
-                           stack_sketches)
+from .engine.batch import (check_overflow, one_vs_many, one_vs_many_pairs,
+                           repad_sketch, stack_sketches)
 from .hit import Hit
 from .ops.chain import ChainConfig, EngineBudgets, rcid_bits_for
 from .ops.screen import screen_batch
@@ -304,31 +307,53 @@ class Database:
             os.path.basename(self._markers[i].name)
             for i in np.nonzero(passes)[0]))
 
-        # phase 2: block chain pipeline over the shortlist
+        # phase 2: chain pipelines over the shortlist.  References past
+        # the packed range of the block partition's contig bucket (or all
+        # of them, for a query >= 2^30 bp) take the full-range per-pair
+        # path; results are merged back in shortlist order
         by_name = {os.path.basename(m.name): m for m in self._markers}
         block_names, fb_names, cb, _ = _partition_blockable(
             by_name, shortlist, query.total_len)
-        if fb_names:
-            _not_ported("the full-range per-pair path (references with "
-                        "contigs past the packed grid range, or queries "
-                        ">= 2^30 bp)")
+        order = {rn: i for i, rn in enumerate(shortlist)}
         out: dict = {}
+
+        def merge(part, names_part, budgets):
+            part = {k: v.cpu().numpy() for k, v in part.items()}
+            check_overflow(part, budgets)
+            rows = [order[rn] for rn in names_part]
+            for k, arr in part.items():
+                if k not in out:
+                    out[k] = np.zeros((len(shortlist),) + arr.shape[1:],
+                                      arr.dtype)
+                out[k][rows] = arr
+
+        names_all, stack, bucket, mbucket = self._ref_stack()
+        qpad = repad_sketch(query, max(bucket, qdev.seed_budget),
+                            max(mbucket, qdev.marker_budget))
         if block_names:
-            names_all, stack, bucket, mbucket = self._ref_stack()
-            if cb != stack.contig_lengths.shape[1]:
-                stack = dataclasses.replace(
+            # the contig axis is cut to the block partition's bucket:
+            # every block-routed genome's contigs fit it
+            stack_block = stack if cb == stack.contig_lengths.shape[1] \
+                else dataclasses.replace(
                     stack, contig_lengths=stack.contig_lengths[:, :cb])
-            qpad = repad_sketch(query, max(bucket, qdev.seed_budget),
-                                max(mbucket, qdev.marker_budget))
             budgets = self._budgets_for(query, set(block_names))
             bcap = max(1, min(16, (1 << 17) // budgets.max_fragments))
             idx = np.array([names_all.index(rn) for rn in block_names],
                            np.int64)
-            part = one_vs_many(stack, qpad, idx, cfg=self._chain_cfg,
+            part = one_vs_many(stack_block, qpad, idx, cfg=self._chain_cfg,
                                budgets=budgets,
                                chunk=_pow2_chunk(len(idx), cap=bcap))
-            out = {k: v.cpu().numpy() for k, v in part.items()}
-            check_overflow(out, budgets)
+            merge(part, block_names, budgets)
+        if fb_names:
+            # per-partition budgets: a giant here must not inflate the
+            # block path's fragment budget, nor the other way round
+            budgets = self._budgets_for(query, set(fb_names))
+            idx = np.array([names_all.index(rn) for rn in fb_names],
+                           np.int64)
+            part = one_vs_many_pairs(stack, qpad, idx, cfg=self._chain_cfg,
+                                     budgets=budgets,
+                                     chunk=_pow2_chunk(len(idx), cap=4))
+            merge(part, fb_names, budgets)
 
         key = "ani_median" if median else \
             "ani_robust" if robust else "ani_mean"

@@ -1,7 +1,9 @@
-"""Anchor chaining + ANI/AF estimation over a block of pairs (PyTorch).
+"""Anchor chaining + ANI/AF estimation (PyTorch).
 
-Port of the block path of the JAX package's ``ops/chain.py``
-(``chain_block`` and what it calls).  For G_r references x G_q queries:
+Port of the JAX package's ``ops/chain.py``: the block path
+(``chain_block``) and the full-range per-pair path (``chain_pairs``,
+which keeps contig-local coordinates and takes what the packed block
+grid cannot hold).  For G_r references x G_q queries, ``chain_block``:
 
 1. ``_block_join``: every seed table goes into ONE stable sort by
    (kmer, tag); each query occurrence expands against its k-mer's whole
@@ -302,25 +304,25 @@ def _dp_grid_from_words(w1g, w2g, rcid_bits: int) -> dict:
             "meta": (((w2g & rmask) << 3) | (w1g & 3)).to(torch.int32)}
 
 
-def _grid_from_sorted_stream(rowid_s, w1, w2, R: int, PF: int):
-    """[R, PF] packed grid planes from the rowid-sorted anchor stream:
-    row r is the stream run [bounds[r], bounds[r+1]) cut to its first PF
-    anchors.  Returns (w1g, w2g, row_bounds [R+1])."""
+def _grid_from_sorted_stream(rowid_s, planes, R: int, PF: int):
+    """[R, PF] grid planes from the rowid-sorted anchor stream: row r is
+    the stream run [bounds[r], bounds[r+1]) cut to its first PF anchors.
+    ``planes`` holds (stream values, fill of the empty cells) pairs.
+    Returns ([R, PF] planes, row_bounds [R+1])."""
     dev = rowid_s.device
     A = rowid_s.shape[0]
     row_bounds = torch.searchsorted(
         rowid_s, torch.arange(R + 1, dtype=torch.int64, device=dev))
+    if A == 0:
+        return [torch.full((R, PF), fill, dtype=vals.dtype, device=dev)
+                for vals, fill in planes], row_bounds
     starts_r = row_bounds[:-1]
     counts_r = row_bounds[1:] - starts_r
     cols = torch.arange(PF, dtype=torch.int64, device=dev)
     ok_g = cols[None, :] < torch.clamp(counts_r, max=PF)[:, None]
-    if A == 0:
-        zero = torch.zeros((R, PF), dtype=torch.int64, device=dev)
-        return zero, zero.clone(), row_bounds
     idx = torch.clamp(starts_r[:, None] + cols[None, :], max=A - 1)
-    w1g = torch.where(ok_g, w1[idx], 0)
-    w2g = torch.where(ok_g, w2[idx], 0)
-    return w1g, w2g, row_bounds
+    return [torch.where(ok_g, vals[idx], fill) for vals, fill in planes], \
+        row_bounds
 
 
 def _bin_reduce(values, flat_bin, n_bins, reduce, init):
@@ -648,7 +650,8 @@ def chain_block(refs: DeviceSketch, queries: DeviceSketch, *,
         bool((queries.contig_lengths.to(i64) >= (1 << 30)).any()) or \
         bool((queries.total_len >= (1 << 30)).any())
     R = P * NF
-    w1g, w2g, row_bounds = _grid_from_sorted_stream(rowid_s, w1, w2, R, PF)
+    (w1g, w2g), row_bounds = _grid_from_sorted_stream(
+        rowid_s, ((w1, 0), (w2, 0)), R, PF)
 
     grid = _dp_grid_from_words(w1g, w2g, rbits)
     scores, roots = chain_dp(grid["qpos"], grid["rpos"], grid["meta"], cfg)
@@ -665,3 +668,360 @@ def chain_block(refs: DeviceSketch, queries: DeviceSketch, *,
     out["anchors_overflow"] = torch.full(
         (P,), a["anchors_overflow"], dtype=torch.bool, device=dev)
     return {k: v.reshape((G_r, G_q) + v.shape[1:]) for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# Full-range per-pair path: chain_pairs
+# ---------------------------------------------------------------------------
+
+
+def _take(sk: DeviceSketch, i: int) -> DeviceSketch:
+    return sk.map(lambda x: x[i])
+
+
+def _join_anchors(ref: DeviceSketch, query: DeviceSketch, cfg: ChainConfig,
+                  budgets: EngineBudgets) -> dict:
+    """Anchors of shared non-repetitive k-mers of one pair (valid ones
+    only, at most ``max_anchors``).
+
+    Both seed tables go into ONE sort by (kmer, tag, index); each query
+    occurrence expands against its k-mer's reference run (a
+    ``searchsorted`` over the run offsets, as in ``_block_join``).  The
+    anchors come out in query-occurrence-major order, the JAX package's
+    slot order."""
+    Sq, Sr = query.seed_budget, ref.seed_budget
+    if not (Sq < (1 << 30) and Sr < (1 << 30)):
+        raise ValueError("pair join: seed tables too large")
+    cap = cfg.max_seed_multiplicity
+    dev = ref.kmers.device
+    i64 = torch.int64
+    n = Sr + Sq
+    kmer = torch.cat([ref.kmers, query.kmers])
+    ii = torch.arange(n, device=dev, dtype=i64)
+    tag_q = ii >= Sr
+    orig = torch.where(tag_q, ii - Sr, ii)
+    # (kmer, tag, index) in one int64: kmer (u32) in bits 62:31, tag in
+    # bit 30, index in bits 29:0; the keys are unique
+    order = torch.sort((kmer << 31) | (tag_q.to(i64) << 30) | orig).indices
+    kmer_s = kmer[order]
+    tag_s = tag_q[order]
+    orig_s = orig[order]
+
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = kmer_s[1:] != kmer_s[:-1]
+    run_start = torch.nonzero(first).flatten()[torch.cumsum(first, 0) - 1]
+    # a query entry's reference run is [run_start, run_start + rc): the
+    # run's reference entries sort before its query entries
+    is_ref = (~tag_s).to(i64)
+    r_excl = torch.cumsum(is_ref, 0) - is_ref
+    zero = torch.zeros((), dtype=i64, device=dev)
+    rc = torch.where(tag_s, r_excl - r_excl[run_start], zero)
+    own_q = query.own_mult[orig_s.clamp(max=Sq - 1)]
+    ok = tag_s & (kmer_s != U32_SENTINEL) & (own_q <= cap) & \
+        (rc > 0) & (rc <= cap)
+    want = int(rc[ok].sum())
+    total = min(want, budgets.max_anchors)
+
+    src_ok = torch.nonzero(ok).flatten()
+    cnt = rc[src_ok]
+    cend = torch.cumsum(cnt, 0)
+    t = torch.arange(total, device=dev, dtype=i64)
+    k = torch.searchsorted(cend, t, right=True)
+    src = src_ok[k]
+    r_idx = run_start[src] + t - (cend[k] - cnt[k])
+    q_orig = orig_s[src]
+    r_orig = orig_s[r_idx]
+    return dict(
+        qpos=query.positions[q_orig].to(i64),
+        qcid=query.contig_ids[q_orig].to(i64),
+        rpos=ref.positions[r_orig].to(i64),
+        rcid=ref.contig_ids[r_orig].to(i64),
+        rev=query.strands[q_orig] != ref.strands[r_orig],
+        n_anchors=total,
+        anchors_overflow=want > budgets.max_anchors,
+    )
+
+
+def _pre_dp(ref: DeviceSketch, query: DeviceSketch, cfg: ChainConfig,
+            budgets: EngineBudgets):
+    """Anchors -> sorted -> [NF, PF] int32 grid planes qpos / rpos / meta
+    (meta = qcid<<17 | rcid<<3 | rev<<1 | valid; empty cells hold
+    I32_SENTINEL, I32_SENTINEL, 0).  Returns (grid, n_anchors,
+    anchors_overflow, frag_overflow)."""
+    fl = cfg.fragment_length
+    NF = budgets.max_fragments
+    PF = budgets.max_anchors_per_fragment
+    C = query.contig_lengths.shape[0]
+    i32 = torch.int32
+
+    _, q_frag_offs = _contig_layout(query, fl)
+    a = _join_anchors(ref, query, cfg, budgets)
+    frag = q_frag_offs[a["qcid"].clamp(0, C - 1)] + a["qpos"] // fl
+    # anchors of fragments past the grid budget are dropped by the grid
+    # build: check_overflow raises on it
+    frag_overflow = bool((frag >= NF).any())
+
+    # sort by (frag, rcid, rpos, qpos), unique per anchor: a stable pass
+    # by the low pair (rpos, qpos < 2^31), then by the high (rcid < 2^14).
+    # Positions stay contig-local, so there is no genome-total cap
+    o1 = torch.sort((a["rpos"] << 31) | a["qpos"], stable=True).indices
+    o2 = torch.sort(((frag << 14) | a["rcid"])[o1], stable=True).indices
+    order = o1[o2]
+    frag_s = frag[order]
+    rcid_s = a["rcid"][order]
+    rev_s = a["rev"][order].to(torch.int64)
+    frag_cid_tab = _frag_contig(q_frag_offs[None], NF, C)[0]
+    qcid_s = frag_cid_tab[frag_s.clamp(0, NF - 1)]
+    meta = (qcid_s << 17) | (rcid_s << 3) | (rev_s << 1) | 1
+    (qpos, rpos, meta), _ = _grid_from_sorted_stream(
+        frag_s, ((a["qpos"][order].to(i32), I32_SENTINEL),
+                 (a["rpos"][order].to(i32), I32_SENTINEL),
+                 (meta.to(i32), 0)), NF, PF)
+    grid = {"qpos": qpos, "rpos": rpos, "meta": meta}
+    return grid, a["n_anchors"], a["anchors_overflow"], frag_overflow
+
+
+def _union_length_seg(cid: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """Total length (f32) of the union of inclusive intervals [lo, hi],
+    grouped by contig id (intervals never span contigs).
+
+    Coordinates stay contig-local, so it is exact for genomes of any
+    total length.  The sum is taken in int64 and rounded to f32 once; the
+    JAX package sums in f32, which agrees below 2^24 bp of union and
+    within one f32 rounding above."""
+    cid, lo, hi = cid[valid], lo[valid], hi[valid]
+    if cid.numel() == 0:
+        return torch.zeros((), dtype=torch.float32, device=cid.device)
+    # (contig, lo) order; the order among equal keys leaves the union as is
+    order = torch.sort((cid << 32) + lo).indices
+    cid_s, lo_s, hi_s = cid[order], lo[order], hi[order]
+    # a running max of (cid<<32) + hi restarts at every contig, since
+    # contig-local coordinates lie within (-2^31, 2^31)
+    cmax = torch.cummax((cid_s << 32) + hi_s, 0).values - (cid_s << 32)
+    first = torch.ones_like(cid_s, dtype=torch.bool)
+    first[1:] = cid_s[1:] != cid_s[:-1]
+    prev = torch.full_like(cmax, NEG_BIG)
+    prev[1:] = torch.where(first[1:], NEG_BIG, cmax[:-1])
+    contrib = torch.clamp(hi_s - torch.maximum(lo_s - 1, prev), min=0)
+    contrib = torch.where(hi_s == NEG_BIG, 0, contrib)
+    return contrib.sum().to(torch.float32)
+
+
+def _denom_tables(sk: DeviceSketch, cfg: ChainConfig):
+    """(position-view keys [S], eligible-seed prefix [S+1]) of one sketch.
+
+    The keys are ``contig<<32 + position`` of the (contig, position)
+    sorted seed view, ascending with the sentinel padding last, so one
+    ``searchsorted`` finds a position inside a contig's segment (the JAX
+    package bounds a binary search by per-contig segment offsets)."""
+    S = sk.seed_budget
+    denom_thr = cfg.denom_mask_mult or cfg.max_seed_multiplicity
+    p_valid = torch.arange(S, device=sk.device) < sk.n_seeds.to(torch.int64)
+    if cfg.mask_repetitive_denom == "none":
+        p_ok = p_valid
+    else:
+        p_ok = p_valid & (sk.p_own_mult <= denom_thr)
+    keys = (sk.p_contig_ids.to(torch.int64) << 32) + \
+        sk.p_positions.to(torch.int64)
+    prefix = torch.zeros(S + 1, dtype=torch.int64, device=sk.device)
+    prefix[1:] = torch.cumsum(p_ok.to(torch.int64), 0)
+    return keys, prefix
+
+
+def _searchsorted_bounded(keys: torch.Tensor, cid: torch.Tensor,
+                          vals: torch.Tensor) -> torch.Tensor:
+    """Index of the first seed of contig ``cid`` with position >= ``vals``
+    in the position view (its contig's segment end if none), per element.
+    ``vals`` lie in [-2^31, 2^31]."""
+    return torch.searchsorted(keys, (cid << 32) + vals)
+
+
+def _count_seeds_in_spans(sk: DeviceSketch, keys: torch.Tensor,
+                          prefix: torch.Tensor, cid: torch.Tensor,
+                          lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Denominator-eligible seeds of contig ``cid`` with position in
+    [lo, hi], per element (shapes broadcast together)."""
+    cid_c = cid.to(torch.int64).clamp(0, sk.contig_lengths.shape[-1] - 1)
+    cid_c, lo, hi = torch.broadcast_tensors(cid_c, lo, hi)
+    i_lo = _searchsorted_bounded(keys, cid_c, lo)
+    i_hi = _searchsorted_bounded(keys, cid_c, hi + 1)
+    return prefix[i_hi] - prefix[i_lo]
+
+
+def _ref_grid_estimates(ref: DeviceSketch, keep_f, rmn_f, rmx_f, rcid_f,
+                        numer_r, cfg: ChainConfig, NF: int):
+    """Fragment-ANI estimates over the REFERENCE fragment grid of one
+    pair: kept chains' ref intervals (flat arrays) are split across ref
+    fragments (``_ref_spans``), and each fragment's span denominator
+    counts its contig's seeds inside.  Returns (frag_ani [NF], +inf at
+    uncovered slots, covered [NF])."""
+    fl = cfg.fragment_length
+    Cr = ref.contig_lengths.shape[0]
+    _, r_frag_offs = _contig_layout(ref, fl)
+    span_lo, span_hi = _ref_spans(
+        ref.contig_lengths.to(torch.int64)[None], r_frag_offs[None],
+        keep_f[None], rmn_f[None], rmx_f[None],
+        rcid_f.clamp(0, Cr - 1)[None], cfg, NF)
+    keys, prefix = _denom_tables(ref, cfg)
+    frag_cid = _frag_contig(r_frag_offs[None], NF, Cr)[0]
+    denom = _count_seeds_in_spans(ref, keys, prefix, frag_cid, span_lo[0],
+                                  span_hi[0])
+    return _frag_ani(numer_r, denom, cfg)
+
+
+def _post_dp(ref: DeviceSketch, query: DeviceSketch, grid: dict, scores,
+             roots, cfg: ChainConfig, budgets: EngineBudgets) -> dict:
+    """Chain statistics, estimators and aligned fractions of one pair.
+
+    Per-chain statistics are scatter-reduces into [NF, PF+1] bins keyed
+    by chain root (the JAX form).  Every coordinate stays contig-local:
+    denominators count seeds by contig (``_count_seeds_in_spans``) and
+    aligned fractions are per-contig interval unions, so genomes of any
+    total length and contigs up to 2^31 bp are exact."""
+    fl = cfg.fragment_length
+    NF = budgets.max_fragments
+    PF = budgets.max_anchors_per_fragment
+    C = query.contig_lengths.shape[0]
+    Cr = ref.contig_lengths.shape[0]
+    dev = scores.device
+    i64 = torch.int64
+    ext_l, ext_r = cfg.extend_left, cfg.extend_right
+
+    _, q_frag_offs = _contig_layout(query, fl)
+    meta = grid["meta"].to(i64)
+    qpos = grid["qpos"].to(i64)
+    rpos = grid["rpos"].to(i64)
+    v = (meta & 1) == 1
+    qcid_g = meta >> 17
+    rcid_g = (meta >> 3) & 0x3FFF
+
+    # ---- per-chain stats: [NF, PF] bins keyed by root (PF = no chain) ----
+    rootc = torch.where(v, roots.to(i64), PF)
+    rows = torch.arange(NF, device=dev, dtype=i64)[:, None]
+    flat_bin = (rows * (PF + 1) + rootc).reshape(-1)
+    nb = NF * (PF + 1)
+
+    def per_chain(values, reduce, init):
+        return _bin_reduce(values, flat_bin, nb, reduce, init).view(
+            NF, PF + 1)[:, :PF]
+
+    c_count = per_chain(v.to(i64), "sum", 0)
+    c_score = per_chain(scores, "amax", float("-inf"))
+    c_qmin = per_chain(qpos, "amin", I32_SENTINEL)
+    c_qmax = per_chain(qpos, "amax", NEG_BIG)
+    c_rmin = per_chain(rpos, "amin", I32_SENTINEL)
+    c_rmax = per_chain(rpos, "amax", NEG_BIG)
+    # all anchors of a chain share (qcid, rcid), both < 2^14
+    c_qrcid = per_chain((qcid_g << 14) | rcid_g, "amin", I32_SENTINEL)
+
+    keep = c_count >= cfg.min_anchors_chain
+    if cfg.min_chain_score > 0:
+        keep &= c_score >= cfg.min_chain_score
+    if cfg.keep_long_span > 0:
+        keep |= (c_count >= 2) & ((c_qmax - c_qmin) >= cfg.keep_long_span)
+    keep &= c_count > 0
+
+    # ---- per-fragment numerator / span denominator (query grid) ----
+    numer = torch.where(keep, c_count, 0).sum(1)
+    frag_ids = torch.arange(NF, device=dev, dtype=i64)
+    frag_cid = _frag_contig(q_frag_offs[None], NF, C)[0]
+    frag_base = (frag_ids - q_frag_offs[frag_cid]) * fl
+    frag_clen = query.contig_lengths.to(i64)[frag_cid]
+    frag_end = torch.minimum(frag_base + fl - 1, frag_clen - 1)
+    span_lo = torch.where(keep, c_qmin - ext_l, I32_SENTINEL).amin(1)
+    span_hi = torch.where(keep, c_qmax + ext_r, NEG_BIG).amax(1)
+    span_lo = torch.maximum(span_lo, frag_base)
+    span_hi = torch.minimum(span_hi, frag_end)
+    keys_q, prefix_q = _denom_tables(query, cfg)
+    denom = _count_seeds_in_spans(query, keys_q, prefix_q, frag_cid,
+                                  span_lo, span_hi)
+    frag_ani, covered = _frag_ani(numer, denom, cfg)
+
+    # kept chains as flat arrays (the tail works on these only)
+    kidx = torch.nonzero(keep.reshape(-1)).flatten()
+    k_qmin, k_qmax = c_qmin.reshape(-1)[kidx], c_qmax.reshape(-1)[kidx]
+    k_rmin, k_rmax = c_rmin.reshape(-1)[kidx], c_rmax.reshape(-1)[kidx]
+    k_qrcid = c_qrcid.reshape(-1)[kidx]
+    k_qcid = (k_qrcid >> 14).clamp(0, C - 1)
+    k_rcid = (k_qrcid & 0x3FFF).clamp(0, Cr - 1)
+    k_all = torch.ones_like(kidx, dtype=torch.bool)
+
+    if cfg.est_side == "both":
+        # ---- ref-side fragment grid (pooled with the query grid) ----
+        _, r_frag_offs = _contig_layout(ref, fl)
+        keep_a = keep.gather(1, rootc.clamp(max=PF - 1)) & v
+        refrag = r_frag_offs[rcid_g.clamp(0, Cr - 1)] + \
+            rpos.clamp(min=0) // fl
+        ok_a = keep_a & (refrag < NF)
+        numer_r = torch.zeros(NF + 1, dtype=i64, device=dev).index_add_(
+            0, torch.where(ok_a, refrag, NF).reshape(-1),
+            ok_a.to(i64).reshape(-1))[:NF]
+        fa_r, cov_r = _ref_grid_estimates(ref, k_all, k_rmin, k_rmax,
+                                          k_rcid, numer_r, cfg, NF)
+        fa_all = torch.cat([frag_ani, fa_r])
+        cov_all = torch.cat([covered, cov_r])
+    else:
+        fa_all, cov_all = frag_ani, covered
+    out = {k: v_[0] for k, v_ in
+           _pooled_estimators(fa_all[None], cov_all[None]).items()}
+
+    # ---- aligned fractions: per-contig unions of the kept chains ----
+    q_clens = query.contig_lengths.to(i64)
+    r_clens = ref.contig_lengths.to(i64)
+    q_lo = torch.clamp(k_qmin - ext_l, min=0)
+    q_hi = torch.minimum(k_qmax + ext_r, q_clens[k_qcid] - 1)
+    r_lo = torch.clamp(k_rmin - ext_l, min=0)
+    r_hi = torch.minimum(k_rmax + ext_r, r_clens[k_rcid] - 1)
+    # denominators: the summed contig lengths (padding rows are 0)
+    f32 = torch.float32
+    q_total = torch.clamp(q_clens.sum().to(f32), min=1.0)
+    r_total = torch.clamp(r_clens.sum().to(f32), min=1.0)
+    out["af_query"] = _union_length_seg(k_qcid, q_lo, q_hi, k_all) / q_total
+    out["af_ref"] = _union_length_seg(k_rcid, r_lo, r_hi, k_all) / r_total
+    return out
+
+
+def chain_pairs(refs: DeviceSketch, queries: DeviceSketch, *,
+                cfg: ChainConfig, budgets: EngineBudgets) -> dict:
+    """Full-range pair pipeline over stacked sketches with leading axis B
+    (pair i = refs[i] vs queries[i]).
+
+    Pre-DP (join, sort, grid) and post-DP run per pair; the DP runs ONCE
+    on the merged [B*NF, PF] grid.  Coordinates stay contig-local int32
+    planes, so this path has none of the packed block-grid caps: contigs
+    up to 2^31 bp on either side and genomes of any total length.
+    Returns a dict of [B] tensors."""
+    _check_supported(cfg)
+    NF = budgets.max_fragments
+    B = refs.kmers.shape[0]
+    dev = refs.kmers.device
+    pre = [_pre_dp(_take(refs, i), _take(queries, i), cfg, budgets)
+           for i in range(B)]
+    merged = {key: torch.cat([p[0][key] for p in pre])
+              for key in ("qpos", "rpos", "meta")}
+    n_anchors = [p[1] for p in pre]
+    anchors_overflow = [p[2] for p in pre]
+    frag_overflow = [p[3] for p in pre]
+    del pre
+    scores, roots = chain_dp(merged["qpos"], merged["rpos"], merged["meta"],
+                             cfg)
+    outs = []
+    for i in range(B):
+        rows = slice(i * NF, (i + 1) * NF)
+        outs.append(_post_dp(_take(refs, i), _take(queries, i),
+                             {k: g[rows] for k, g in merged.items()},
+                             scores[rows], roots[rows], cfg, budgets))
+    out = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    out["n_anchors"] = torch.tensor(n_anchors, dtype=torch.int32, device=dev)
+    out["anchors_overflow"] = torch.tensor(anchors_overflow, device=dev)
+    out["frag_overflow"] = torch.tensor(frag_overflow, device=dev)
+    return out
+
+
+def chain_pair(ref: DeviceSketch, query: DeviceSketch, *, cfg: ChainConfig,
+               budgets: EngineBudgets) -> dict:
+    """One pair through :func:`chain_pairs`: a dict of scalars."""
+    out = chain_pairs(ref.map(lambda x: x[None]), query.map(lambda x: x[None]),
+                      cfg=cfg, budgets=budgets)
+    return {k: v[0] for k, v in out.items()}

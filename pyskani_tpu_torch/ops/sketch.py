@@ -19,10 +19,13 @@ form and stays bit-equal on every output:
   the starts table instead of a scatter-max and running-max fill;
 * the survivors are already in (contig, position) order, so the
   kmer-sorted table is ONE stable sort by kmer, and the position-sorted
-  view is the compacted table itself.
+  view is the compacted table itself;
+* genomes above ``GIANT_SKETCH_BUFFER`` are sketched in chunked calls
+  whose tables are merged on the device (the JAX package merges them in
+  numpy on the host).
 
 Only the fused k=15 / marker_k=21 path is ported; other k raise
-``NotImplementedError``, as do genomes above ``GIANT_SKETCH_BUFFER``.
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -106,22 +109,33 @@ def _rolling_windows(codes: torch.Tensor):
     buffer wraps (``torch.roll``), as ``jnp.roll`` does; callers mask it
     with ``pos_in_contig >= k-1``.
     """
+    # intermediates are dropped as soon as they are used: a genome-length
+    # int64 array is 8 bytes per base
     c = codes.to(torch.int64)
+    r1 = 3 - c
     f2 = (torch.roll(c, 1) << 2) | c
+    del c
     f4 = (torch.roll(f2, 2) << 4) | f2
+    del f2
     f8 = (torch.roll(f4, 4) << 8) | f4
+    del f4
     f16 = (torch.roll(f8, 8) << 16) | f8
     fwd15 = f16 & 0x3FFFFFFF
     f5 = f8 & 0x3FF                       # newest 5 bases
+    del f8
     m_f = (torch.roll(f5, 16) << 32) | f16     # 42-bit forward marker k-mer
+    del f5, f16
 
-    r1 = 3 - c
     r2 = (r1 << 2) | torch.roll(r1, 1)
+    del r1
     r4 = (r2 << 4) | torch.roll(r2, 2)
+    del r2
     r8 = (r4 << 8) | torch.roll(r4, 4)
+    del r4
     r16 = (r8 << 16) | torch.roll(r8, 8)
     rev15 = r16 >> 2
     r5 = r8 >> 6                          # newest 5 complements (top)
+    del r8
     m_r = (r5 << 32) | torch.roll(r16, 5)      # 42-bit reverse marker k-mer
     return fwd15, rev15, m_f, m_r
 
@@ -176,15 +190,19 @@ def encode_pack_host(raw: np.ndarray) -> np.ndarray:
 
 
 def sketch_kernel(packed_codes: torch.Tensor, contig_starts: torch.Tensor,
-                  n_contigs: int, *, k: int, marker_k: int, c: int,
-                  marker_c: int, seed_budget: int, marker_budget: int):
+                  n_contigs: int, valid_floor: torch.Tensor | None = None, *,
+                  k: int, marker_k: int, c: int, marker_c: int,
+                  seed_budget: int, marker_budget: int):
     """All-positions FracMinHash scan + compaction for one genome.
 
     ``packed_codes`` is uint8 [L//4] (``encode_pack_host``, oldest base in
     bits 1:0); ``contig_starts`` int32 [C+1] holds the global start of
-    each contig with ``contig_starts[n_contigs] = total_len``.  Returns a
-    dict with the same keys, values and (int64 for u32) types as the JAX
-    ``sketch_kernel``.
+    each contig with ``contig_starts[n_contigs] = total_len``.
+    ``valid_floor`` (int32 [C+1], optional) is a global window-end floor
+    per contig: the chunked giant-genome path feeds continuation pieces
+    of a split contig with a K-1 overlap and masks the overlap's window
+    ends with it.  Returns a dict with the same keys, values and (int64
+    for u32) types as the JAX ``sketch_kernel``.
     """
     if k != 15 or marker_k != 21:
         raise NotImplementedError(
@@ -207,19 +225,29 @@ def sketch_kernel(packed_codes: torch.Tensor, contig_starts: torch.Tensor,
     starts64 = contig_starts.to(torch.int64)
     ii = torch.arange(L, device=dev, dtype=torch.int64)
     table = starts64[:n_contigs + 1]
-    my_start = table[torch.searchsorted(table, ii, right=True) - 1]
-    pos_in_contig = ii - my_start
+    my_contig = torch.searchsorted(table, ii, right=True) - 1
+    pos_in_contig = ii - table[my_contig]
     total_len = int(contig_starts[min(max(n_contigs, 0), C)])
     in_seq = ii < total_len
+    if valid_floor is not None:
+        # the floors increase with the contig (floor < next start), so the
+        # contig found above also picks the floor
+        in_seq &= ii >= valid_floor.to(torch.int64)[:n_contigs + 1][my_contig]
+    del my_contig
 
     fwd, rev, mfwd, mrev = _rolling_windows(codes)
+    del codes
     strand = fwd < rev
     canon = torch.where(strand, fwd, rev)
+    del fwd, rev
     h = mm_hash64(canon)
     mcanon = torch.minimum(mfwd, mrev)
+    del mfwd, mrev
     seed_mask = in_seq & (pos_in_contig >= k - 1) & _below(h, thr)
+    del h
     mh = mm_hash64(mcanon)
     marker_mask = in_seq & (pos_in_contig >= marker_k - 1) & _below(mh, mthr)
+    del mh, pos_in_contig, in_seq
     n_seeds_want = int(seed_mask.sum())
     n_markers_want = int(marker_mask.sum())
 
@@ -342,9 +370,10 @@ def marker_budget_for(total_len: int, marker_c: int) -> int:
     return round_up(int(expect * 1.35) + 512, 512)
 
 
-# per-call sequence budget: genomes above it are sketched in chunks by the
-# JAX package; the port does not implement that path yet
+# per-call sequence budget: a kernel call holds several genome-length
+# int64 intermediates, so genomes above it stream through chunked calls
 GIANT_SKETCH_BUFFER = 1 << 27
+U32_MAX = (1 << 32) - 1
 
 
 @dataclasses.dataclass
@@ -366,6 +395,192 @@ class HostSketch:
         return sum(max(1, -(-length // fl)) for length in self.lengths)
 
 
+def _plan_sketch_pieces(kept: Sequence[bytes], K: int, max_buffer: int):
+    """Split contigs into fed pieces of <= max_buffer bytes each and pack
+    them into kernel calls.
+
+    A piece is (true_cid, src_start, src_end, floor): the kernel is fed
+    ``contig[src_start:src_end]``; continuation pieces of a split contig
+    lead with a K-1-byte overlap (K = max(k, marker_k)) and mask window
+    ends below ``floor`` so the chunk outputs tile the contig's windows
+    exactly once.  Returns a list of calls, each a list of pieces.
+    """
+    if max_buffer < 4 * K:
+        # a continuation piece must make progress past its K-1 overlap
+        raise ValueError(f"max_buffer={max_buffer} too small for "
+                         f"k-mer windows of up to {K} bases (need >= "
+                         f"{4 * K})")
+    pieces = []
+    for cid, contig in enumerate(kept):
+        n = len(contig)
+        pos = 0
+        while pos < n:
+            lead = 0 if pos == 0 else K - 1
+            new = min(n - pos, max_buffer - lead)
+            pieces.append((cid, pos - lead, pos + new, lead))
+            pos += new
+    calls, cur, cur_len = [], [], 0
+    for p in pieces:
+        fed = p[2] - p[1]
+        if cur and cur_len + fed > max_buffer:
+            calls.append(cur)
+            cur, cur_len = [], 0
+        cur.append(p)
+        cur_len += fed
+    if cur:
+        calls.append(cur)
+    return calls
+
+
+def pad_to(t: torch.Tensor, size: int, fill) -> torch.Tensor:
+    """``t`` cut or padded with ``fill`` to ``size`` entries."""
+    out = torch.full((size,), fill, dtype=t.dtype, device=t.device)
+    k = min(t.shape[0], size)
+    out[:k] = t[:k]
+    return out
+
+
+def _pack_call(pieces, slots: int, length_bucket: int, device):
+    """One :func:`sketch_kernel` call's input from ``(bytes, floor)``
+    pieces laid end to end: the packed codes (padded to a multiple of
+    ``length_bucket``), the [slots + 1] starts table and the [slots + 1]
+    window-end floors (each piece's start plus its floor); slots past the
+    last piece hold the fed total."""
+    total = sum(len(b) for b, _ in pieces)
+    L = max(round_up(total, length_bucket), length_bucket)
+    raw = np.zeros(L, dtype=np.uint8)
+    starts = np.full(slots + 1, total, dtype=np.int32)
+    floors = np.full(slots + 1, total, dtype=np.int32)
+    off = 0
+    for i, (b, floor) in enumerate(pieces):
+        raw[off:off + len(b)] = np.frombuffer(b, dtype=np.uint8)
+        starts[i], floors[i] = off, off + floor
+        off += len(b)
+    return (torch.from_numpy(encode_pack_host(raw)).to(device),
+            torch.from_numpy(starts).to(device),
+            torch.from_numpy(floors).to(device))
+
+
+def _sketch_genome_chunked(name: str, kept: List[bytes], params: SketchParams,
+                           seed_budget: int | None, marker_budget: int | None,
+                           length_bucket: int, max_buffer: int,
+                           contig_lengths: torch.Tensor) -> DeviceSketch:
+    """Chunked sketching for genomes too large for one kernel call.
+
+    Each call sketches a group of pieces through :func:`sketch_kernel`
+    (``valid_floor`` masks the overlaps of split contigs).  The per-call
+    tables are merged on the device: one (kmer, contig, position) order,
+    own multiplicities from the k-mer runs of the UNION, the
+    (contig, position) view, and the deduplicated union of the markers.
+    Bit-equal to a single-call sketch and to the JAX package's chunked
+    sketch (whose merge runs in numpy on the host)."""
+    total = sum(len(c) for c in kept)
+    device = contig_lengths.device
+    K = max(params.k, params.marker_k)
+    kmer_l, pos_l, cid_l, str_l, mark_l = [], [], [], [], []
+    for pieces in _plan_sketch_pieces(kept, K, max_buffer):
+        fed_total = sum(p[2] - p[1] for p in pieces)
+        packed, starts, floors = _pack_call(
+            [(memoryview(kept[cid])[s0:s1], floor)
+             for cid, s0, s1, floor in pieces],
+            contig_budget_for(len(pieces)), length_bucket, device)
+        sb_c = seed_budget_for(fed_total, params.c)
+        mb_c = marker_budget_for(fed_total, params.marker_c)
+        out = sketch_kernel(
+            packed, starts, len(pieces), floors, k=params.k,
+            marker_k=params.marker_k, c=params.c, marker_c=params.marker_c,
+            seed_budget=sb_c, marker_budget=mb_c)
+        _warn_sketch_overflow(name, out["n_seeds_want"],
+                              out["n_markers_want"], sb_c, mb_c)
+        ns, nm = out["n_seeds"], out["n_markers"]
+        piece_cid = torch.tensor([p[0] for p in pieces], dtype=torch.int64,
+                                 device=device)
+        piece_off = torch.tensor([p[1] for p in pieces], dtype=torch.int64,
+                                 device=device)
+        pidx = out["contig_ids"][:ns].to(torch.int64)
+        kmer_l.append(out["kmers"][:ns])
+        pos_l.append(out["positions"][:ns].to(torch.int64) + piece_off[pidx])
+        cid_l.append(piece_cid[pidx])
+        str_l.append(out["strands"][:ns])
+        mark_l.append((out["markers_hi"][:nm] << 32) | out["markers_lo"][:nm])
+
+    kmer, pos, cid, strand = (torch.cat(x) for x in
+                              (kmer_l, pos_l, cid_l, str_l))
+    # (kmer, contig, position) is unique per seed: a stable sort by
+    # (contig, position), then a stable sort by kmer, gives the total order
+    # (the second is the position view's order)
+    p_order = torch.sort((cid << 32) | pos, stable=True).indices
+    order = p_order[torch.sort(kmer[p_order], stable=True).indices]
+    kmer_s = kmer[order]
+    _, inv, cnt = torch.unique_consecutive(kmer_s, return_inverse=True,
+                                           return_counts=True)
+    own = torch.empty_like(kmer_s, dtype=torch.int32)
+    own[order] = cnt[inv].to(torch.int32)
+    markers = torch.unique(torch.cat(mark_l))
+
+    n, m = kmer.shape[0], markers.shape[0]
+    sb = seed_budget or seed_budget_for(total, params.c)
+    mb = marker_budget or marker_budget_for(total, params.marker_c)
+    if n > sb or m > mb:
+        raise ValueError(f"chunked sketch {name!r} outgrew its budgets "
+                         f"({n}>{sb} or {m}>{mb})")
+    i32 = torch.int32
+
+    def scalar(v):
+        return torch.tensor(v, dtype=i32, device=device)
+
+    return DeviceSketch(
+        kmers=pad_to(kmer_s, sb, U32_SENTINEL),
+        positions=pad_to(pos[order].to(i32), sb, I32_SENTINEL),
+        contig_ids=pad_to(cid[order].to(i32), sb, I32_SENTINEL),
+        strands=pad_to(strand[order], sb, False),
+        own_mult=pad_to(own[order], sb, 0),
+        p_positions=pad_to(pos[p_order].to(i32), sb, I32_SENTINEL),
+        p_contig_ids=pad_to(cid[p_order].to(i32), sb, I32_SENTINEL),
+        p_own_mult=pad_to(own[p_order], sb, 0),
+        markers_hi=pad_to(markers >> 32, mb, U32_SENTINEL),
+        markers_lo=pad_to(markers & U32_MAX, mb, U32_SENTINEL),
+        n_seeds=scalar(n), n_markers=scalar(m),
+        contig_lengths=contig_lengths, n_contigs=scalar(len(kept)),
+        total_len=torch.tensor(min(total, U32_MAX), dtype=torch.int64,
+                               device=device))
+
+
+def _sketch_genome_single(name: str, kept: List[bytes], params: SketchParams,
+                          seed_budget: int | None, marker_budget: int | None,
+                          length_bucket: int,
+                          contig_lengths: torch.Tensor) -> DeviceSketch:
+    """One :func:`sketch_kernel` call over all contigs, concatenated."""
+    total = sum(len(c) for c in kept)
+    device = contig_lengths.device
+    packed, starts, _ = _pack_call([(c, 0) for c in kept],
+                                   contig_lengths.shape[0], length_bucket,
+                                   device)
+    sb = seed_budget or seed_budget_for(total, params.c)
+    mb = marker_budget or marker_budget_for(total, params.marker_c)
+    out = sketch_kernel(
+        packed, starts, len(kept), k=params.k, marker_k=params.marker_k,
+        c=params.c, marker_c=params.marker_c, seed_budget=sb,
+        marker_budget=mb)
+    _warn_sketch_overflow(name, out.pop("n_seeds_want"),
+                          out.pop("n_markers_want"), sb, mb)
+
+    def scalar(v, dtype=torch.int32):
+        return torch.tensor(v, dtype=dtype, device=device)
+
+    return DeviceSketch(
+        kmers=out["kmers"], positions=out["positions"],
+        contig_ids=out["contig_ids"], strands=out["strands"],
+        own_mult=out["own_mult"],
+        p_positions=out["p_positions"], p_contig_ids=out["p_contig_ids"],
+        p_own_mult=out["p_own_mult"],
+        markers_hi=out["markers_hi"], markers_lo=out["markers_lo"],
+        n_seeds=scalar(out["n_seeds"]), n_markers=scalar(out["n_markers"]),
+        contig_lengths=contig_lengths, n_contigs=scalar(len(kept)),
+        # u32 in the JAX package: saturates for genomes of 4.3 Gbp or more
+        total_len=scalar(min(total, U32_MAX), torch.int64))
+
+
 def sketch_genome_device(
     name: str,
     contigs: Sequence[bytes],
@@ -382,6 +597,8 @@ def sketch_genome_device(
 
     Contigs shorter than MIN_LENGTH_CONTIG are skipped entirely.
     ``max_contigs`` defaults to a power-of-two bucket sized from the input.
+    Genomes larger than ``max_buffer`` stream through chunked kernel calls
+    (:func:`_sketch_genome_chunked`), with the same result.
     """
     kept = [c for c in contigs if len(c) >= MIN_LENGTH_CONTIG]
     contig_names = [f"{name}_{i}" for i, c in enumerate(contigs)
@@ -397,52 +614,17 @@ def sketch_genome_device(
                          f"than the max_contigs={max_contigs} budget")
     lengths = [len(c) for c in kept]
     total = sum(lengths)
-    if total > max_buffer:
-        raise NotImplementedError(
-            f"genome {name!r} has {total} bp, above the {max_buffer} bp "
-            f"single-call buffer: chunked giant-genome sketching is still "
-            f"to port")
-    L = max(round_up(max(total, 1), length_bucket), length_bucket)
-
-    raw = np.zeros(L, dtype=np.uint8)
-    starts = np.zeros(max_contigs + 1, dtype=np.int32)
-    off = 0
-    for i, contig in enumerate(kept):
-        n = len(contig)
-        raw[off:off + n] = np.frombuffer(contig, dtype=np.uint8)
-        starts[i] = off
-        off += n
-    starts[len(kept):] = off
-
-    sb = seed_budget or seed_budget_for(total, params.c)
-    mb = marker_budget or marker_budget_for(total, params.marker_c)
     device = torch.device(device)
-    out = sketch_kernel(
-        torch.from_numpy(encode_pack_host(raw)).to(device),
-        torch.from_numpy(starts).to(device), len(kept),
-        k=params.k, marker_k=params.marker_k, c=params.c,
-        marker_c=params.marker_c, seed_budget=sb, marker_budget=mb)
-    _warn_sketch_overflow(name, out.pop("n_seeds_want"),
-                          out.pop("n_markers_want"), sb, mb)
-
     clens = np.zeros(max_contigs, dtype=np.int32)
     clens[:len(lengths)] = lengths
-
-    def scalar(v, dtype=torch.int32):
-        return torch.tensor(v, dtype=dtype, device=device)
-
-    dev = DeviceSketch(
-        kmers=out["kmers"], positions=out["positions"],
-        contig_ids=out["contig_ids"], strands=out["strands"],
-        own_mult=out["own_mult"],
-        p_positions=out["p_positions"], p_contig_ids=out["p_contig_ids"],
-        p_own_mult=out["p_own_mult"],
-        markers_hi=out["markers_hi"], markers_lo=out["markers_lo"],
-        n_seeds=scalar(out["n_seeds"]), n_markers=scalar(out["n_markers"]),
-        contig_lengths=torch.from_numpy(clens).to(device),
-        n_contigs=scalar(len(lengths)),
-        total_len=scalar(total, torch.int64),
-    )
+    clens = torch.from_numpy(clens).to(device)
+    if total > max_buffer:
+        dev = _sketch_genome_chunked(name, kept, params, seed_budget,
+                                     marker_budget, length_bucket,
+                                     max_buffer, clens)
+    else:
+        dev = _sketch_genome_single(name, kept, params, seed_budget,
+                                    marker_budget, length_bucket, clens)
     if not seed:
         dev = _blank_seed_table(dev)
     return HostSketch(name=name, contig_names=contig_names, device=dev,

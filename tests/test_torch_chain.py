@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from conftest import mutate, random_genome
+from pyskani_tpu.engine import batch as jax_batch
 from pyskani_tpu.engine.batch import stack_sketches, take_sketch
 from pyskani_tpu.oracle.chain import ChainConfig as JaxChainConfig
 from pyskani_tpu.ops.chain import EngineBudgets as JaxBudgets
@@ -19,6 +20,7 @@ from pyskani_tpu.ops.chain import chain_block as jax_chain_block
 from pyskani_tpu.ops.sketch import sketch_genome_device
 from pyskani_tpu.params import SketchParams
 from pyskani_tpu_torch import convert
+from pyskani_tpu_torch.engine.batch import one_vs_many
 from pyskani_tpu_torch.ops.chain import (ChainConfig, EngineBudgets,
                                          chain_block)
 
@@ -100,3 +102,44 @@ def test_chain_block_rejects_unsupported(family):
     with pytest.raises(NotImplementedError, match="est_ci"):
         chain_block(fam, fam, cfg=ChainConfig(est_ci=True),
                     budgets=EngineBudgets(**SIZES))
+
+
+@pytest.mark.parametrize("max_anchors", [200, 4096])
+def test_one_vs_many_pads_last_chunk_as_jax(max_anchors):
+    """Three references in chunks of two: the last chunk is padded with
+    reference 0 in both packages (store index 0 in JAX, the first of
+    ``ref_idx`` here), and the padding pair shares the chunk's anchor
+    pool.  With a 200-anchor pool that pool overflows, so
+    the third pair keeps fewer anchors than it would alone, in both."""
+    rng = np.random.default_rng(41)
+    base = random_genome(rng, 60_000)
+    genomes = [[mutate(rng, base, d)] for d in (0.01, 0.02, 0.03)]
+    q = [mutate(rng, base, 0.015)]
+    kw = dict(seed_budget=1024, marker_budget=512, length_bucket=1 << 16)
+    stack = stack_sketches([sketch_genome_device(f"r{i}", g, SketchParams(),
+                                                 **kw)
+                            for i, g in enumerate(genomes)])
+    qs = sketch_genome_device("q", q, SketchParams(), **kw).device
+    sizes = dict(SIZES, max_anchors=max_anchors)
+    idx = np.array([0, 1, 2], np.int32)
+    want = jax.device_get(jax_batch.one_vs_many(
+        stack, qs, idx, cfg=JaxChainConfig(), budgets=JaxBudgets(**sizes),
+        chunk=2))
+    tq = convert.sketch_from_numpy(jax.device_get(qs), "q", [], [],
+                                   device="cpu").device
+    got = one_vs_many(_port(stack), tq, idx, cfg=ChainConfig(),
+                      budgets=EngineBudgets(**sizes), chunk=2)
+    assert set(got) == set(want)
+    for key, w in want.items():
+        if key in FLOAT_KEYS:
+            np.testing.assert_allclose(got[key].numpy(), np.asarray(w),
+                                       rtol=0, atol=1e-6, err_msg=key)
+        else:
+            np.testing.assert_array_equal(got[key].numpy(), np.asarray(w),
+                                          err_msg=key)
+    alone = chain_block(_port(stack).map(lambda x: x[2:]),
+                        tq.map(lambda x: x[None]), cfg=ChainConfig(),
+                        budgets=EngineBudgets(**sizes))
+    clipped = int(alone["n_anchors"][0, 0]) != int(want["n_anchors"][2])
+    assert clipped == (max_anchors == 200)
+    assert bool(np.asarray(want["anchors_overflow"]).all()) == clipped

@@ -2,9 +2,14 @@
 
 Hits must be equal: the same references in the same order, identities
 and aligned fractions within 1e-6.  A store sketched by the JAX package
-and carried across with ``convert`` gives the same hits.  Paths the port
-does not implement yet raise ``NotImplementedError``.
+and carried across with ``convert`` gives the same hits.  References past
+the packed block-grid range, queries of 2^30 bp or more and genomes above
+the sketch buffer take the full-range per-pair path or chunked sketching,
+as in the JAX package.  Paths the port does not implement yet raise
+``NotImplementedError``.
 """
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -160,9 +165,8 @@ def test_empty_database_and_api_surface():
 
 
 @pytest.mark.parametrize("call", [
-    "path", "open", "load", "save", "sketch_many", "est_ci", "k", "giant",
-    "fallback"])
-def test_not_ported_paths_raise(call, monkeypatch, tmp_path):
+    "path", "open", "load", "save", "sketch_many", "est_ci", "k"])
+def test_not_ported_paths_raise(call, tmp_path):
     db = pyskani_tpu_torch.Database(device="cpu")
     db.sketch("a", random_genome(np.random.default_rng(3), 20_000))
     calls = {
@@ -174,22 +178,179 @@ def test_not_ported_paths_raise(call, monkeypatch, tmp_path):
         "est_ci": lambda: db.query("q", b"ACGT" * 100, est_ci=True),
         "k": lambda: pyskani_tpu_torch.Database(k=16, device="cpu"),
     }
-    if call == "giant":
-        monkeypatch.setattr(tdb, "sketch_genome_device",
-                            _small_buffer(tdb.sketch_genome_device))
-        calls["giant"] = lambda: db.sketch("g", b"ACGT" * 1000)
-    if call == "fallback":
-        # a reference past the packed grid range goes to the full-range
-        # per-pair path, which is not ported
-        monkeypatch.setattr(tdb, "_partition_blockable",
-                            lambda by_name, sl, qt: ([], list(sl), 8, 0))
-        q = random_genome(np.random.default_rng(3), 20_000)
-        calls["fallback"] = lambda: db.query("q", q)
     with pytest.raises(NotImplementedError, match="not ported|to port"):
         calls[call]()
 
 
-def _small_buffer(fn):
+def _small_buffer(fn, max_buffer):
     def wrapped(*a, **kw):
-        return fn(*a, max_buffer=1024, **kw)
+        return fn(*a, max_buffer=max_buffer, **kw)
     return wrapped
+
+
+def test_chunked_sketches_give_same_hits(genomes, dbs, monkeypatch):
+    """Genomes above the sketch buffer (shrunk to 40 kb here) are
+    sketched in chunked calls, store and query alike: the same hits."""
+    refs, queries = genomes
+    jdb, _ = dbs
+    monkeypatch.setattr(tdb, "sketch_genome_device",
+                        _small_buffer(tdb.sketch_genome_device, 40_000))
+    port = pyskani_tpu_torch.Database(device="cpu")
+    for name, contigs in refs:
+        port.sketch(name, *contigs)
+    for name, contigs in queries:
+        _assert_same_hits(port.query(name, *contigs, learned_ani=False),
+                          jdb.query(name, *contigs, learned_ani=False))
+
+
+def _split(genome: bytes, n: int):
+    step = -(-len(genome) // n)
+    return [genome[i:i + step] for i in range(0, len(genome), step)]
+
+
+def test_giant_contig_fallback_matches_jax():
+    """A reference whose contig is past the packed range (the cap shrunk
+    by a related 4100-contig draft in the shortlist) takes the full-range
+    per-pair path while the draft chains on the block path: the hits
+    equal the JAX package's, and the rerouted hit equals the one a store
+    without the draft gives on the block path."""
+    rng = np.random.default_rng(23)
+    base = random_genome(rng, 600_000)
+    draft = _split(mutate(rng, base, 0.04), 600) + \
+        [random_genome(rng, 1000) for _ in range(3500)]
+    q = mutate(rng, base, 0.01)
+    assert len(base) >= 1 << (32 - tdb.rcid_bits_for(8192))
+
+    control = pyskani_tpu_torch.Database(device="cpu")
+    control.sketch("giant", base)
+    jdb = pyskani_tpu.Database()
+    port = pyskani_tpu_torch.Database(device="cpu")
+    for db in (jdb, port):
+        db.sketch("giant", base)
+        db.sketch("draft", *draft)
+    by_name = {m.name: m for m in port._markers}
+    block, fb, cb, _ = tdb._partition_blockable(by_name, ["giant", "draft"])
+    assert (block, fb, cb) == (["draft"], ["giant"], 8192)
+    want = jdb.query("q", q)
+    got = port.query("q", q)
+    _assert_same_hits(got, want)
+    assert [h.reference_name for h in got] == ["giant", "draft"]
+    _assert_same_hits(got[:1], control.query("q", q))
+
+
+def test_block_chunk_padding_skips_rerouted_store_head():
+    """Store index 0 is a complete genome past the packed range and three
+    4100-contig drafts chain on the block path in one chunk of four, so
+    the chunk is padded.  The padding reference is the first draft, never
+    store index 0, whose positions would overflow the block grid: the
+    query returns every hit, the complete genome's equal to a store of it
+    alone and the drafts' equal to the JAX package's on a store of the
+    drafts alone (where it, too, pads with the first draft)."""
+    rng = np.random.default_rng(31)
+    base = random_genome(rng, 560_000)
+    drafts = [(f"d{i}", _split(mutate(rng, base, 0.02 + 0.01 * i), 600) +
+               [random_genome(rng, 150) for _ in range(3500)])
+              for i in range(3)]
+    q = mutate(rng, base, 0.01)
+    assert len(base) >= 1 << (32 - tdb.rcid_bits_for(8192))
+
+    control = pyskani_tpu_torch.Database(device="cpu")
+    control.sketch("giant", base)
+    port = pyskani_tpu_torch.Database(device="cpu")
+    port.sketch("giant", base)
+    jdb = pyskani_tpu.Database()
+    for name, contigs in drafts:
+        port.sketch(name, *contigs)
+        jdb.sketch(name, *contigs)
+    by_name = {m.name: m for m in port._markers}
+    block, fb, cb, _ = tdb._partition_blockable(by_name, list(by_name))
+    assert (block, fb, cb) == (["d0", "d1", "d2"], ["giant"], 8192)
+    got = port.query("q", q, learned_ani=False)
+    assert [h.reference_name for h in got] == ["giant", "d0", "d1", "d2"]
+    _assert_same_hits(got[:1], control.query("q", q, learned_ani=False))
+    _assert_same_hits(got[1:], jdb.query("q", q, learned_ani=False))
+
+
+@pytest.fixture(scope="module")
+def giant_setup():
+    """JAX and port stores of two related references, a control query
+    and a >= 2.2 Gbp query fabricated around the control's sketch: the
+    control's contig placed after 30 seedless pad contigs of 56 Mbp, 10
+    more after it.  Coarse 200 kb fragments keep the giant's grid small;
+    the control uses the same config."""
+    from test_giant_query import _embed_giant
+
+    rng = np.random.default_rng(29)
+    base = random_genome(rng, 500_000)
+    m = mutate(rng, base, 0.03)
+    refs = [("near", [mutate(rng, base, 0.01)]),
+            ("multi", [m[:200_000], _revcomp(m[200_000:350_000]),
+                       m[350_000:]])]
+    q = mutate(rng, base, 0.02)
+    jdb = pyskani_tpu.Database()
+    port = pyskani_tpu_torch.Database(device="cpu")
+    for db in (jdb, port):
+        db._chain_cfg = dataclasses.replace(db._chain_cfg,
+                                            fragment_length=200_000)
+        for name, contigs in refs:
+            db.sketch(name, *contigs)
+    q_sk = pyskani_tpu.database.sketch_genome_device("q", [q], jdb._params)
+    giant = _embed_giant(q_sk, pre=30, post=10, pad_len=56_000_000)
+    assert giant.total_len >= 2_200_000_000
+    giant_port = convert.sketch_from_numpy(
+        jax.device_get(giant.device), giant.name, giant.contig_names,
+        giant.lengths, device="cpu")
+    return jdb, port, q, q_sk, giant, giant_port
+
+
+def test_giant_query_matches_jax(giant_setup, monkeypatch):
+    """A >= 2^30 bp query goes through ``Database.query`` (every
+    reference on the per-pair path) and gives the JAX package's hits:
+    identity and reference fraction within 1e-6, query fraction within
+    1e-6 relative (the JAX package sums the contig lengths in f32).  It
+    equals the control query's hits, the query fraction scaled by the
+    total-length ratio."""
+    jdb, port, q, q_sk, giant, giant_port = giant_setup
+    control = port.query("q", q, learned_ani=False)
+    assert len(control) == 2
+    monkeypatch.setattr(pyskani_tpu.database, "sketch_genome_device",
+                        lambda *a, **k: giant)
+    monkeypatch.setattr(tdb, "sketch_genome_device",
+                        lambda *a, **k: giant_port)
+    want = jdb.query("qgiant", b"A" * 600, learned_ani=False)
+    got = port.query("qgiant", b"A" * 600, learned_ani=False)
+    assert [h.reference_name for h in got] == \
+        [h.reference_name for h in want] == ["near", "multi"]
+    scale = q_sk.total_len / giant.total_len
+    for g, w, c in zip(got, want, control):
+        assert g.identity == pytest.approx(w.identity, abs=1e-6)
+        assert g.reference_fraction == pytest.approx(w.reference_fraction,
+                                                     abs=1e-6)
+        assert g.query_fraction == pytest.approx(w.query_fraction, rel=1e-6)
+        assert abs(g.identity - c.identity) < 2e-6
+        assert abs(g.reference_fraction - c.reference_fraction) < 2e-6
+        assert g.query_fraction == pytest.approx(c.query_fraction * scale,
+                                                 rel=1e-5)
+
+
+def test_convert_saturates_giant_total(giant_setup):
+    """A sketch of 4.3 Gbp or more: ``total_len`` saturates at 2^32-1 in
+    both packages and survives the round trip."""
+    from test_giant_query import _embed_giant
+
+    _, _, _, q_sk, _, _ = giant_setup
+    giant = _embed_giant(q_sk, pre=80, post=0, pad_len=56_000_000)
+    assert giant.total_len >= 1 << 32
+    fields = jax.device_get(giant.device)
+    port = convert.sketch_from_numpy(fields, giant.name, giant.contig_names,
+                                     giant.lengths, device="cpu")
+    assert port.total_len == giant.total_len
+    back = convert.sketch_to_numpy(port)
+    assert back["total_len"] == np.uint32(0xFFFFFFFF)
+    for f in back:
+        np.testing.assert_array_equal(back[f], np.asarray(getattr(fields, f)),
+                                      err_msg=f)
+    # an unsaturated int64 total saturates on the way out, never wraps
+    port.device.total_len = torch.tensor(giant.total_len, dtype=torch.int64)
+    assert convert.sketch_to_numpy(port)["total_len"] == \
+        np.uint32(0xFFFFFFFF)

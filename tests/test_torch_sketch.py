@@ -104,12 +104,89 @@ def test_hash_matches_numpy_u64():
 
 
 def test_unsupported_k_and_giants_raise():
+    """k other than 15 is not ported; a giant genome streams through
+    chunked calls unless the buffer cannot hold a k-mer overlap."""
     contigs = [b"ACGT" * 100]
     packed, starts = _kernel_inputs(contigs)
     with pytest.raises(NotImplementedError, match="k=16"):
         tsk.sketch_kernel(torch.from_numpy(packed), torch.from_numpy(starts),
                           1, k=16, marker_k=21, c=125, marker_c=1000,
                           seed_budget=1024, marker_budget=512)
-    with pytest.raises(NotImplementedError, match="giant"):
-        tsk.sketch_genome_device("g", contigs, P, max_buffer=256,
+    with pytest.raises(ValueError, match="too small"):
+        tsk.sketch_genome_device("g", contigs, P, max_buffer=64,
                                  device="cpu")
+
+
+GIANT_CONTIGS = (700_000, 300_000, 400_000)   # the first is split
+
+
+@pytest.fixture(scope="module")
+def giant_contigs():
+    rng = np.random.default_rng(7)
+    return [random_genome(rng, n) for n in GIANT_CONTIGS]
+
+
+@pytest.mark.parametrize("seed", [True, False])
+def test_chunked_sketch_equals_single_and_jax(giant_contigs, seed):
+    """A genome above the call buffer streams through chunked calls (a
+    split contig's continuation masks its K-1 overlap with
+    ``valid_floor``): bit-equal to one call, and field for field to the
+    JAX package's chunked sketch."""
+    buf = 400_000
+    assert max(GIANT_CONTIGS) >= buf > 4 * 21
+    calls = tsk._plan_sketch_pieces(giant_contigs, 21, buf)
+    assert calls == jsk._plan_sketch_pieces(giant_contigs, 21, buf)
+    assert len(calls) >= 3 and calls[0][1:] == [] and calls[1][0][3] == 20
+    one = tsk.sketch_genome_device("g", giant_contigs, P, seed=seed,
+                                   device="cpu")
+    chunked = tsk.sketch_genome_device("g", giant_contigs, P, seed=seed,
+                                       max_buffer=buf, device="cpu")
+    want = jsk.sketch_genome_device("g", giant_contigs, P, seed=seed,
+                                    max_buffer=buf)
+    got_np = convert.sketch_to_numpy(chunked)
+    one_np = convert.sketch_to_numpy(one)
+    for f, w in jax.device_get(vars(want.device)).items():
+        w = np.asarray(w)
+        assert got_np[f].dtype == w.dtype, f
+        np.testing.assert_array_equal(got_np[f], w, err_msg=f)
+    # one call equals the chunked calls on every table row (the padding
+    # differs: one call's sentinel rows carry the sentinel run's length)
+    n, m = int(one_np["n_seeds"]), int(one_np["n_markers"])
+    assert (n, m) == (int(got_np["n_seeds"]), int(got_np["n_markers"]))
+    assert (n > 10_000) == seed
+    for f in ("kmers", "positions", "contig_ids", "strands", "own_mult",
+              "p_positions", "p_contig_ids", "p_own_mult"):
+        np.testing.assert_array_equal(one_np[f][:n], got_np[f][:n],
+                                      err_msg=f)
+    for f in ("markers_hi", "markers_lo"):
+        np.testing.assert_array_equal(one_np[f][:m], got_np[f][:m],
+                                      err_msg=f)
+    for f in ("contig_lengths", "n_contigs", "total_len"):
+        np.testing.assert_array_equal(one_np[f], got_np[f], err_msg=f)
+    assert chunked.lengths == list(GIANT_CONTIGS)
+
+
+def test_valid_floor_masks_window_ends():
+    """``valid_floor`` raises the first window end of each contig, and a
+    floor at every contig's start changes nothing (vs JAX)."""
+    contigs = _genome("multi")
+    packed, starts = _kernel_inputs(contigs)
+    kw = dict(k=15, marker_k=21, c=P.c, marker_c=P.marker_c,
+              seed_budget=2048, marker_budget=512)
+    for extra in (0, 500):
+        floors = starts.copy()
+        floors[:len(contigs)] += extra
+        want = jax.device_get(jsk.sketch_kernel(
+            jnp.asarray(packed), jnp.asarray(starts),
+            jnp.int32(len(contigs)), jnp.asarray(floors), **kw))
+        got = tsk.sketch_kernel(torch.from_numpy(packed),
+                                torch.from_numpy(starts), len(contigs),
+                                torch.from_numpy(floors), **kw)
+        for key, w in want.items():
+            g = got[key]
+            g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+            np.testing.assert_array_equal(g.astype(np.int64),
+                                          np.asarray(w).astype(np.int64),
+                                          err_msg=key)
+        n = int(got["n_seeds"])
+        assert (got["p_positions"][:n] >= extra).all()

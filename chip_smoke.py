@@ -39,23 +39,41 @@ Phases (any failure exits non-zero and prints no result line):
              must equal the control query's (identity and reference
              fraction within 2e-6, query fraction scaled by the length
              ratio within 1e-5 relative);
-7. kernels — every DP grid the search, fallback and giant phases fed the
-             kernel, random tie-heavy grids and edge grids (PF = 100,
-             bands 0/1/25/32, anchors resuming after 40 invalid columns,
-             empty rows, a tie across two 32-column chunks, contig-local
-             positions in [2^30, 2^31) with reverse strands and gaps at
-             max_gap_length +- 1) through the CUDA kernel and its plain
-             PyTorch version: score and root must be bit-equal.  Times
-             the kernel on the first search grid and on the first
-             ``chain_pairs`` grid of the fallback phase as device time
-             (launches queued behind a sleep kernel, so the host's
+7. triangle — all-vs-all.  (a) 64 genomes of 2.3 Mbp, ~1% substitutions
+             from one root: ``Database.sketch_many`` must equal a
+             per-genome ``sketch`` loop bit for bit (both rates printed);
+             ``engine.batch.triangle`` must launch the DP 3 times (two
+             ``chain_triangle`` groups of 32, one 32 x 32 ``chain_block``
+             tile); pairs/s, wall and peak memory; 16 sampled pairs must
+             equal ``chain_pairs`` on the card and a 3-genome
+             ``chain_triangle`` the CPU port's (1e-6).  (b) the fallback
+             store's first two families (8 complete genomes, 8 drafts):
+             every pair touching a complete genome takes ``pairs_ani``
+             (92 pairs) and the drafts one ``chain_triangle``; the 28
+             complete pairs must equal a triangle of the complete genomes
+             alone, and one complete-draft pair the CPU port's (1e-6).
+             (c) ``cli.main(["triangle", ...])`` on 4 FASTA files: its
+             rows must equal the engine's;
+8. kernels — every DP grid the search, fallback, giant and triangle
+             phases fed the kernel, random tie-heavy grids and edge grids
+             (PF = 100, bands 0/1/25/32, anchors resuming after 40 invalid
+             columns, empty rows, a tie across two 32-column chunks,
+             contig-local positions in [2^30, 2^31) with reverse strands
+             and gaps at max_gap_length +- 1) through the CUDA kernel and
+             its plain PyTorch version: score and root must be bit-equal.
+             Times the kernel on the first search grid, the largest
+             ``chain_pairs`` grid of the fallback phase, a giant grid and
+             the family triangle's group and cross-tile grids as device
+             time (launches queued behind a sleep kernel, so the host's
              enqueue is off the clock), warm and with L2 flushed, the
              wrapper's host time per call and the plain version, and
              computes the card's bound for the work.
 
-The chain-DP kernel's launch count is reset just before each of the
-search, fallback and giant phases and read just after; each must launch
-it, and the per-pair path must launch it for every fallback query.
+The chain-DP kernel's launch count is reset just before the main-path
+calls of each phase (the search's queries, the fallback's queries, the
+giant query, each of the three triangles) and read just after; each must
+launch it, the per-pair path for every fallback query, and the family
+triangle exactly 3 times.
 
 The last three lines are the card line, one ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
@@ -95,6 +113,12 @@ GIANT = dict(genomes=((160_000_000, 80_000_000, 60_000_000),
                       (140_000_000, 40_000_000, 20_000_000),
                       (136_000_000, 8_000_000, 6_000_000)),
              pads=(30, 10, 56_000_000))
+# triangle phase: the JAX package's bench family (bench.py: one root, ~1%
+# substitutions per genome), 64 genomes so the triangle has two groups of
+# 32 and one 32 x 32 cross tile
+TRIANGLE = dict(genomes=64, length=2_300_000)
+FLOAT_KEYS = ("ani_mean", "ani_robust", "ani_median", "af_query", "af_ref")
+INT_KEYS = ("n_anchors", "n_fragments")
 
 
 def log(*a):
@@ -304,8 +328,9 @@ def phase_search(result, torch, dev, args, rec):
 
 
 def _profile(torch, fn):
-    """Device busy time, wall time and the top device activities (kernels,
-    copies) of one call."""
+    """Device busy time, wall time, the top device activities (kernels,
+    copies) of one call, and the host time spent inside PyTorch ops (the
+    rest of the wall is Python and numpy)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -325,16 +350,18 @@ def _profile(torch, fn):
     busy = sum(us for us, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     dp_us = sum(us for k, (us, _) in by_name.items() if "chain_dp" in k)
+    host_ops_us = sum(e.self_cpu_time_total for e in prof.key_averages())
     out = dict(wall_us=wall_us, device_busy_us=busy,
                idle_share=1.0 - busy / wall_us,
                device_launches=sum(n for _, n in by_name.values()),
-               chain_dp_us=dp_us,
+               chain_dp_us=dp_us, host_ops_us=host_ops_us,
                top=[dict(name=k[:80], device_us=us, count=n)
                     for k, (us, n) in top])
     log(f"[profile] wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms in {out['device_launches']} device "
         f"activities, idle share {out['idle_share']:.3f}; chain-DP kernel "
-        f"{dp_us / 1e3:.4f} ms")
+        f"{dp_us / 1e3:.4f} ms; host inside PyTorch ops "
+        f"{host_ops_us / 1e3:.2f} ms")
     for t in out["top"][:8]:
         log(f"[profile]   {t['device_us'] / 1e3:9.3f} ms x{t['count']:5d} "
             f"{t['name']}")
@@ -347,10 +374,10 @@ class Recorder:
 
     It wraps ``chain_dp`` as ``ops/chain.py`` calls it (a clone of each
     CUDA grid while ``keep`` is set) and ``chain_block`` / ``chain_pairs``
-    as ``engine/batch.py`` calls them (the wrapper's own launch count
-    before and after each call)."""
+    / ``chain_triangle`` as ``engine/batch.py`` calls them (the wrapper's
+    own launch count before and after each call)."""
 
-    PATHS = ("chain_block", "chain_pairs")
+    PATHS = ("chain_block", "chain_pairs", "chain_triangle")
 
     def __init__(self):
         from pyskani_tpu_torch.engine import batch as batch_mod
@@ -742,6 +769,235 @@ def phase_giant(result, torch, dev, args, rec, db, queries, fb_hits):
     return launches
 
 
+def _family_genomes(rng, n: int, length: int):
+    """n genomes, each ~1% substitutions from one random root (the JAX
+    package's bench family, bench.py::make_genomes)."""
+    root = ACGT[rng.integers(0, 4, length, dtype=np.uint8)]
+    out = []
+    for _ in range(n):
+        arr = root.copy()
+        idx = rng.integers(0, length, length // 100)
+        arr[idx] = ACGT[rng.integers(0, 4, len(idx), dtype=np.uint8)]
+        out.append(arr.tobytes())
+    return out
+
+
+def _out_diff(got: dict, want: dict, keys=FLOAT_KEYS) -> float:
+    """Max |diff| over ``keys`` of two dicts of equal-length arrays, and
+    the integer keys must agree exactly."""
+    for k in INT_KEYS:
+        if not np.array_equal(np.asarray(got[k]), np.asarray(want[k])):
+            raise AssertionError(f"{k}: {got[k]} != {want[k]}")
+    return max(float(np.abs(np.asarray(got[k], np.float64) -
+                            np.asarray(want[k], np.float64)).max())
+               for k in keys)
+
+
+def _cpu(t):
+    return {k: v.cpu().numpy() for k, v in t.items()}
+
+
+def phase_triangle(result, torch, dev, args, rec, db):
+    """All-vs-all: (a) a 64-genome family, (b) a mixed complete/draft set
+    from the fallback store, (c) the CLI.  Returns the chain-DP launches
+    of the three main-path calls."""
+    import tempfile
+
+    import pyskani_tpu_torch
+    from pyskani_tpu_torch import cli
+    from pyskani_tpu_torch.engine import batch as eb
+    from pyskani_tpu_torch.ops import chain_dp as dp_mod
+    from pyskani_tpu_torch.ops.chain import ChainConfig
+    from pyskani_tpu_torch.ops.sketch import FIELDS
+
+    T = TRIANGLE
+    cfg = ChainConfig()
+    rng = np.random.default_rng(args.seed + 3)
+    t0 = time.perf_counter()
+    genomes = _family_genomes(rng, T["genomes"], T["length"])
+    gen_s = time.perf_counter() - t0
+    names = [f"t{i:02d}" for i in range(len(genomes))]
+    bp = sum(map(len, genomes))
+
+    # ---- (a) batched vs per-genome sketching, bit-equal ----
+    many = pyskani_tpu_torch.Database()
+    one = pyskani_tpu_torch.Database()
+    _, many_s, _ = _timed(torch, lambda: many.sketch_many(
+        (n, [g]) for n, g in zip(names, genomes)))
+    _, one_s, _ = _timed(torch, lambda: [one.sketch(n, g)
+                                         for n, g in zip(names, genomes)])
+    sketches = [many._storage.load(n) for n in names]
+    for n, a in zip(names, sketches):
+        b = one._storage.load(n)
+        for f in FIELDS:
+            if not torch.equal(getattr(a.device, f), getattr(b.device, f)):
+                raise AssertionError(f"{n}: sketch_many differs from sketch "
+                                     f"in {f}")
+    log(f"[triangle] {len(genomes)} genomes of {T['length']} bp (~1% from "
+        f"one root, generated in {gen_s:.1f} s): sketch_many "
+        f"{bp / 1e6 / many_s:.1f} Mbp/s ({many_s:.2f} s), per-genome sketch "
+        f"{bp / 1e6 / one_s:.1f} Mbp/s ({one_s:.2f} s); bit-equal on every "
+        f"field")
+    del one
+
+    # ---- (a) the family triangle: untimed with grids kept, then timed ----
+    rec.phase = "triangle"
+    first, first_s, _ = _timed(torch, lambda: eb.triangle(sketches, cfg))
+    rec.keep = False
+    dp_mod.chain_dp.launches = 0
+    base = {p: rec.launches_of("triangle", p) for p in Recorder.PATHS}
+    (ri, qi, out), wall_s, peak_gib = _timed(
+        torch, lambda: eb.triangle(sketches, cfg))
+    fam_launches = dp_mod.chain_dp.launches
+    per_path = {p: rec.launches_of("triangle", p) - base[p]
+                for p in Recorder.PATHS}
+    if args.profile:
+        prof = result.setdefault("profile", {})
+        prof["triangle"] = _profile(torch, lambda: eb.triangle(sketches, cfg))
+        stack8 = [(n, [g]) for n, g in zip(names[:8], genomes[:8])]
+        prof["sketch_many"] = _profile(
+            torch, lambda: pyskani_tpu_torch.Database().sketch_many(stack8))
+    rec.keep = True
+    rec.phase = None
+    if per_path != {"chain_block": 1, "chain_pairs": 0, "chain_triangle": 2} \
+            or fam_launches != 3:
+        raise AssertionError(f"family triangle launched the DP "
+                             f"{fam_launches} times: {per_path}")
+    if _out_diff(first[2], out) != 0.0:
+        raise AssertionError("the family triangle is not repeatable")
+    P = len(ri)
+    ani = out["ani_mean"]
+    if not (np.isfinite(ani).all() and (ani > 0.97).all() and
+            (ani <= 1.0).all() and (out["af_query"] > 0.8).all()):
+        raise AssertionError(f"implausible family ANI {ani.min()}-"
+                             f"{ani.max()}")
+    shapes = sorted({tuple(g[0].shape) for g in rec.grids_of("triangle")})
+    log(f"[triangle] family: {P} pairs in {wall_s:.3f} s = {P / wall_s:.1f} "
+        f"pairs/s (first call {first_s:.3f} s), peak +{peak_gib:.2f} GiB; "
+        f"chain-DP launches {per_path}, grids {shapes}; ANI "
+        f"{ani.min():.5f}-{ani.max():.5f}, {int(out['n_anchors'].min())}-"
+        f"{int(out['n_anchors'].max())} anchors per pair")
+
+    # 16 sampled pairs on chain_pairs (own pool per pair), on the card
+    rec.phase = "triangle_checks"
+    batch = eb.stack_sketches(sketches)
+    budgets = eb.default_budgets(sketches, batch, cfg)
+    pick = np.sort(rng.choice(P, 16, replace=False))
+    ref = _cpu(eb.pairs_ani(batch, ri[pick], qi[pick], cfg=cfg,
+                            budgets=budgets))
+    pairs_diff = _out_diff({k: v[pick] for k, v in out.items()}, ref)
+    # one 3-genome chain_triangle on the card vs the CPU port
+    three = eb.take_sketch(batch, torch.tensor([0, 1, 2], device=dev))
+    card3 = _cpu(eb.chain_triangle(three, cfg=cfg, budgets=budgets))
+    cpu3 = _cpu(eb.chain_triangle(three.map(lambda x: x.cpu()), cfg=cfg,
+                                  budgets=budgets))
+    cpu_diff = _out_diff(card3, cpu3)
+    rec.phase = None
+    if pairs_diff > 1e-6 or cpu_diff > 1e-6:
+        raise AssertionError(f"family triangle vs chain_pairs {pairs_diff}, "
+                             f"3-genome card vs CPU {cpu_diff}")
+    log(f"[triangle] 16 sampled pairs vs chain_pairs: max |diff| "
+        f"{pairs_diff:.3g} (n_anchors equal); 3-genome chain_triangle card "
+        f"vs CPU port: max |diff| {cpu_diff:.3g}")
+    del batch, three
+
+    # ---- (b) mixed: 8 complete genomes + 8 drafts of the fallback store ----
+    mixed = [db._storage.load(m.name) for m in db._markers[:16]]
+    complete = [i for i, s in enumerate(mixed) if len(s.lengths) == 1]
+    # untimed with grids kept, then timed with none kept, as in (a)
+    rec.phase = "triangle_mixed"
+    _, _, mfirst = eb.triangle(mixed, cfg)
+    rec.keep = False
+    dp_mod.chain_dp.launches = 0
+    base = {p: rec.launches_of("triangle_mixed", p) for p in Recorder.PATHS}
+    try:
+        (mri, mqi, mout), mixed_s, mixed_gib = _timed(
+            torch, lambda: eb.triangle(mixed, cfg))
+    finally:
+        rec.keep = True
+    mixed_launches = dp_mod.chain_dp.launches
+    mixed_path = {p: rec.launches_of("triangle_mixed", p) - base[p]
+                  for p in Recorder.PATHS}
+    rec.phase = "triangle_checks"
+    if _out_diff(mfirst, mout) != 0.0:
+        raise AssertionError("the mixed triangle is not repeatable")
+    del mfirst
+    n_fb = sum(1 for i, j in zip(mri, mqi) if i in complete or j in complete)
+    if len(complete) != 8 or n_fb != 92 or mixed_path["chain_triangle"] != 1 \
+            or mixed_path["chain_block"] != 0 or \
+            mixed_path["chain_pairs"] != -(-n_fb // 4):
+        raise AssertionError(f"mixed triangle routing: complete {complete}, "
+                             f"{n_fb} per-pair pairs, launches {mixed_path}")
+    cri, cqi, cout = eb.triangle([mixed[i] for i in complete], cfg)
+    sel = [int(np.nonzero((mri == complete[a]) & (mqi == complete[b]))[0][0])
+           for a, b in zip(cri, cqi)]
+    ctrl_diff = _out_diff({k: v[sel] for k, v in mout.items()}, cout)
+    # one complete-draft pair on the CPU port, with the mixed budgets
+    mbatch = eb.stack_sketches(mixed)
+    mbudgets = eb.default_budgets(mixed, mbatch, cfg)
+    i, j = complete[0], min(set(range(16)) - set(complete))
+    p_ij = int(np.nonzero((mri == i) & (mqi == j))[0][0])
+    cpu_pair = _cpu(eb.pairs_ani(mbatch.map(lambda x: x.cpu()), [i], [j],
+                                 cfg=cfg, budgets=mbudgets))
+    mixed_cpu_diff = _out_diff({k: mout[k][[p_ij]] for k in cpu_pair},
+                               cpu_pair)
+    rec.phase = None
+    del mbatch
+    if ctrl_diff > 1e-6 or mixed_cpu_diff > 1e-6:
+        raise AssertionError(f"mixed triangle vs control {ctrl_diff}, vs CPU "
+                             f"port {mixed_cpu_diff}")
+    mshapes = sorted({tuple(g[0].shape)
+                      for g in rec.grids_of("triangle_mixed")})
+    log(f"[triangle] mixed (8 complete + 8 drafts): {len(mri)} pairs in "
+        f"{mixed_s:.3f} s, peak +{mixed_gib:.2f} GiB; {n_fb} pairs per-pair; "
+        f"chain-DP launches {mixed_path}, grids {mshapes}; complete pairs "
+        f"vs a control triangle: max |diff| {ctrl_diff:.3g}; pair ({i}, {j}) "
+        f"vs the CPU port: max |diff| {mixed_cpu_diff:.3g}")
+
+    # ---- (c) the CLI on 4 FASTA files ----
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for n, g in zip(names[:4], genomes[:4]):
+            paths.append(os.path.join(tmp, f"{n}.fa"))
+            with open(paths[-1], "wb") as f:
+                f.write(b">" + n.encode() + b"\n" + g + b"\n")
+        tsv = os.path.join(tmp, "out.tsv")
+        rec.phase = "triangle_cli"
+        dp_mod.chain_dp.launches = 0
+        rc = cli.main(["triangle", *paths, "--device", "cuda", "-o", tsv])
+        cli_launches = dp_mod.chain_dp.launches
+        rec.phase = None
+        with open(tsv) as f:
+            rows = f.read().splitlines()
+    _, _, eout = eb.triangle(sketches[:4], cfg)
+    want = ["Ref_file\tQuery_file\tANI\tAlign_fraction_ref\t"
+            "Align_fraction_query"]
+    for p, (a, b) in enumerate(zip(*np.triu_indices(4, k=1))):
+        want.append(f"{names[a]}.fa\t{names[b]}.fa\t"
+                    f"{100 * float(eout['ani_mean'][p]):.2f}\t"
+                    f"{100 * float(eout['af_ref'][p]):.2f}\t"
+                    f"{100 * float(eout['af_query'][p]):.2f}")
+    if rc != 0 or rows != want or cli_launches != 1:
+        raise AssertionError(f"CLI triangle rc {rc}, launches "
+                             f"{cli_launches}: {rows} != {want}")
+    log(f"[triangle] CLI triangle on 4 FASTA files: {len(rows) - 1} rows "
+        f"equal the engine's; chain-DP launches {cli_launches}")
+    result["triangle"] = dict(
+        genomes=len(genomes), length=T["length"], bp=bp,
+        sketch_many_s=many_s, sketch_many_mbp_s=bp / 1e6 / many_s,
+        sketch_loop_s=one_s, sketch_loop_mbp_s=bp / 1e6 / one_s,
+        pairs=P, wall_s=wall_s, first_s=first_s, pairs_per_s=P / wall_s,
+        peak_gib=peak_gib, dp_launches=per_path, grid_shapes=shapes,
+        ani_range=[float(ani.min()), float(ani.max())],
+        sampled_pairs_max_diff=pairs_diff, cpu_three_max_diff=cpu_diff,
+        mixed=dict(pairs=len(mri), wall_s=mixed_s, peak_gib=mixed_gib,
+                   per_pair_pairs=n_fb, dp_launches=mixed_path,
+                   grid_shapes=mshapes, control_max_diff=ctrl_diff,
+                   cpu_max_diff=mixed_cpu_diff),
+        cli=dict(rows=len(rows) - 1, dp_launches=cli_launches))
+    return fam_launches + mixed_launches + cli_launches
+
+
 def _tie_grid(rng, R, PF, torch, dev):
     """Random tie-heavy [R, PF] grids: small coordinates, so many
     predecessors give equal candidates; rows sorted by (rcid, rpos)."""
@@ -1024,6 +1280,12 @@ def phase_kernels(result, torch, dev, rec, launches):
     fallback = _time_kernel(torch, dev, pairs_grid, cfg, "fallback")
     giant = _time_kernel(torch, dev, rec.grids_of("giant", "chain_pairs")[0],
                          cfg, "giant", n_plain=1)
+    tri_group = _time_kernel(
+        torch, dev, rec.grids_of("triangle", "chain_triangle")[0], cfg,
+        "triangle group")
+    tri_cross = _time_kernel(
+        torch, dev, rec.grids_of("triangle", "chain_block")[0], cfg,
+        "triangle cross tile", n_plain=1)
     profiles = {ph: _row_profile(rec.grids_of(ph, "chain_pairs"))
                 for ph in ("fallback", "giant")}
     log(f"[kernels] chain_pairs row profiles (valid anchors per row): "
@@ -1040,6 +1302,7 @@ def phase_kernels(result, torch, dev, rec, launches):
     result["kernels"] = [entry]
     result["kernel_detail"] = dict(
         search=search, fallback=fallback, giant=giant,
+        triangle_group=tri_group, triangle_cross=tri_cross,
         pair_row_profiles=profiles,
         registers=regs, grids_checked=len(cases), recorded=counts,
         plain_s=plain_s)
@@ -1088,10 +1351,12 @@ def main() -> int:
             result, torch, dev, args, rec)
         giant_launches = phase_giant(result, torch, dev, args, rec, db,
                                      queries, fb_hits)
+        tri_launches = phase_triangle(result, torch, dev, args, rec, db)
     del db
-    launches = search_launches + fb_launches + giant_launches
+    launches = search_launches + fb_launches + giant_launches + tri_launches
     log(f"[launches] chain-DP kernel on the main paths: search "
-        f"{search_launches}, fallback {fb_launches}, giant {giant_launches}")
+        f"{search_launches}, fallback {fb_launches}, giant {giant_launches}, "
+        f"triangle {tri_launches}")
     entry = phase_kernels(result, torch, dev, rec, launches)
     result["total_s"] = time.perf_counter() - t_start
     log(f"[done] {result['total_s']:.1f} s")

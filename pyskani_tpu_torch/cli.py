@@ -1,0 +1,288 @@
+"""Command-line interface of the PyTorch engine: skani's ``dist`` and
+``triangle`` modes.
+
+  skani-tpu-torch dist     -q query.fa [...] -r ref.fa [...]
+  skani-tpu-torch triangle genome1.fa genome2.fa [...]
+
+The arguments, the TSV and the ``--full-matrix`` / ``--distance`` forms
+are those of the JAX package's ``skani-tpu``.  Output is skani-style TSV:
+  Ref_file  Query_file  ANI  Align_fraction_ref  Align_fraction_query
+
+Both run on ``--device`` (default ``cuda``; ``cpu`` runs the plain
+PyTorch versions).  Not ported yet, each exiting with code 2: ``sketch``
+and ``search`` (on-disk stores), ``--ci`` (bootstrap confidence
+intervals) and ``--mesh`` (several devices).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from typing import List
+
+# what is not ported yet -> the ROADMAP.md item that queues it
+_NOT_PORTED = {
+    "sketch": "the `sketch` subcommand (on-disk stores, ROADMAP A.10)",
+    "search": "the `search` subcommand (on-disk stores, ROADMAP A.10)",
+    "ci": "--ci (bootstrap confidence intervals, ROADMAP A.9)",
+    "mesh": "--mesh (several devices, ROADMAP A.12)",
+}
+
+
+def _add_sketch_params(p):
+    p.add_argument("-c", "--compression", type=int, default=125,
+                   help="compression factor (sketch density)")
+    p.add_argument("-m", "--marker-compression", type=int, default=1000,
+                   help="marker k-mer compression factor")
+    p.add_argument("-k", type=int, default=15, help="k-mer size")
+
+
+def _add_query_params(p):
+    p.add_argument("--median", action="store_true",
+                   help="estimate median instead of mean identity")
+    p.add_argument("--robust", action="store_true",
+                   help="10%%/90%% trimmed-mean identity")
+    p.add_argument("-s", "--screen", type=float, default=None,
+                   help="marker screening ANI cutoff (fraction or percent)")
+    p.add_argument("--faster-small", action="store_true",
+                   help="screen genomes with <20 markers aggressively")
+    p.add_argument("--learned-ani", choices=["auto", "yes", "no"],
+                   default="auto")
+    p.add_argument("--min-af", type=float, default=15.0,
+                   help="minimum aligned fraction (percent) to report")
+    p.add_argument("--ci", action="store_true",
+                   help="confidence intervals (not ported yet)")
+    p.add_argument("-o", "--output-file", default=None,
+                   help="write results to this file instead of stdout")
+    p.add_argument("-n", "--max-results", type=int, default=1_000_000_000,
+                   help="keep at most this many hits per query "
+                        "(best ANI first)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; cpu runs "
+                        "the plain PyTorch versions)")
+
+
+def _learned(val):
+    return {"auto": None, "yes": True, "no": False}[val]
+
+
+def _screen_val(s):
+    if s is None:
+        return None
+    return s / 100.0 if s > 1.0 else s
+
+
+def _header(out):
+    out.write("Ref_file\tQuery_file\tANI\tAlign_fraction_ref\t"
+              "Align_fraction_query\n")
+
+
+def _emit(out, ref_name, query_name, ani, af_r, af_q):
+    out.write(f"{ref_name}\t{query_name}\t{100*ani:.2f}\t"
+              f"{100*af_r:.2f}\t{100*af_q:.2f}\n")
+
+
+class _out_stream:
+    """Context manager: ``-o FILE`` or stdout (skani's out_file_name)."""
+
+    def __init__(self, path):
+        self._path = path
+        self._fh = None
+
+    def __enter__(self):
+        if self._path is None:
+            return sys.stdout
+        self._fh = open(self._path, "w")
+        return self._fh
+
+    def __exit__(self, *exc):
+        if self._fh is not None:
+            self._fh.close()
+        return False
+
+
+def _expand_lists(paths: List[str], list_files: List[str] | None) -> List[str]:
+    """Positional paths plus newline-separated paths from -l list files
+    (skani's file-of-filenames input convention)."""
+    out = list(paths)
+    for lf in list_files or ():
+        with open(lf) as f:
+            out.extend(line.strip() for line in f
+                       if line.strip() and not line.startswith("#"))
+    return out
+
+
+def _genome_records(paths: List[str]):
+    """Yield (name, contigs) per FASTA file (whole file = one genome)."""
+    from .io.fasta import read_genome
+    for path in paths:
+        yield os.path.basename(path), read_genome(path)
+
+
+def _run_queries(db, args, out) -> None:
+    """Query each input genome and emit filtered, capped hit rows."""
+    _header(out)
+    for qname, qcontigs in _genome_records(args.queries):
+        hits = db.query(qname, *qcontigs, median=args.median,
+                        robust=args.robust, cutoff=_screen_val(args.screen),
+                        faster_small=args.faster_small,
+                        learned_ani=_learned(args.learned_ani))
+        hits = [h for h in hits
+                if max(h.query_fraction,
+                       h.reference_fraction) * 100 >= args.min_af]
+        # max_results cap, best ANI first
+        hits.sort(key=lambda h: -h.identity)
+        for h in hits[:args.max_results]:
+            _emit(out, h.reference_name, h.query_name, h.identity,
+                  h.reference_fraction, h.query_fraction)
+
+
+def cmd_dist(args) -> int:
+    from .database import Database
+    args.queries = _expand_lists(args.queries, args.query_lists)
+    refs = _expand_lists(args.refs, args.ref_lists)
+    if not args.queries or not refs:
+        print("error: need at least one query (-q/--ql) and one "
+              "reference (-r/--rl)", file=sys.stderr)
+        return 2
+    db = Database(compression=args.compression,
+                  marker_compression=args.marker_compression, k=args.k,
+                  device=args.device)
+    db.sketch_many(_genome_records(refs))
+    with _out_stream(args.output_file) as out:
+        _run_queries(db, args, out)
+    return 0
+
+
+def cmd_triangle(args) -> int:
+    from .engine.batch import triangle
+    from .ops.chain import ChainConfig
+    from .ops.sketch import sketch_genomes_device
+    from .params import SketchParams
+
+    params = SketchParams(c=args.compression,
+                          marker_c=args.marker_compression, k=args.k)
+    genomes = _expand_lists(args.genomes, args.list_files)
+    if len(genomes) < 2:
+        print("error: triangle needs at least two genomes", file=sys.stderr)
+        return 2
+    sketches = sketch_genomes_device(list(_genome_records(genomes)), params,
+                                     device=args.device)
+    names = [s.name for s in sketches]
+    ri, qi, out = triangle(sketches, cfg=ChainConfig())
+    key = "ani_median" if args.median else \
+        "ani_robust" if args.robust else "ani_mean"
+
+    with _out_stream(args.output_file) as fh:
+        if args.full_matrix:
+            # PHYLIP-style lower-triangular matrix (skani triangle's
+            # default output; the sparse TSV is this CLI's default)
+            vals = {}
+            for i in range(len(ri)):
+                v = float(out[key][i])
+                v = 100.0 - 100.0 * v if args.distance else 100.0 * v
+                vals[(max(ri[i], qi[i]), min(ri[i], qi[i]))] = v
+            diag = 0.0 if args.distance else 100.0
+            fh.write(f"{len(names)}\n")
+            for i, name in enumerate(names):
+                row = [name]
+                row += [f"{vals.get((i, j), 0.0):.2f}" for j in range(i)]
+                row.append(f"{diag:.2f}")
+                fh.write("\t".join(row) + "\n")
+            return 0
+        _header(fh)
+        for i in range(len(ri)):
+            ani = float(out[key][i])
+            af_q = float(out["af_query"][i])
+            af_r = float(out["af_ref"][i])
+            if ani <= 0.1 or max(af_q, af_r) * 100 < args.min_af:
+                continue
+            if args.distance:
+                ani = 1.0 - ani
+            _emit(fh, names[ri[i]], names[qi[i]], ani, af_r, af_q)
+    return 0
+
+
+def _not_ported(what: str) -> int:
+    print(f"error: {_NOT_PORTED.get(what, what)} is not ported to the "
+          f"PyTorch engine yet; use the JAX package's skani-tpu for it",
+          file=sys.stderr)
+    return 2
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="skani-tpu-torch",
+        description="ANI computation (skani method) on the PyTorch engine")
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    # skani-tpu's disk-store commands parse as there and exit with a reason
+    p = sub.add_parser("sketch", help="not ported yet (on-disk stores)")
+    p.add_argument("genomes", nargs="*")
+    p.add_argument("-l", "--list", dest="list_files", action="append")
+    p.add_argument("-o", "--output", required=True, help="database folder")
+    p.add_argument("--format", choices=["consolidated", "separated"])
+    _add_sketch_params(p)
+
+    p = sub.add_parser("search", help="not ported yet (on-disk stores)")
+    p.add_argument("queries", nargs="*")
+    p.add_argument("--ql", dest="query_lists", action="append")
+    p.add_argument("-d", "--database", required=True)
+    p.add_argument("--preload", action="store_true")
+    p.add_argument("--mesh", default=None, metavar="DBxBATCH")
+    _add_query_params(p)
+
+    p = sub.add_parser("dist", help="ANI between query and reference genomes")
+    p.add_argument("-q", "--queries", nargs="*", default=[])
+    p.add_argument("-r", "--refs", nargs="*", default=[])
+    p.add_argument("--ql", dest="query_lists", action="append",
+                   help="file listing query paths, one per line")
+    p.add_argument("--rl", dest="ref_lists", action="append",
+                   help="file listing reference paths, one per line")
+    _add_sketch_params(p)
+    _add_query_params(p)
+    p.set_defaults(func=cmd_dist)
+
+    p = sub.add_parser("triangle", help="all-vs-all ANI (lower triangle)")
+    p.add_argument("genomes", nargs="*")
+    p.add_argument("-l", "--list", dest="list_files", action="append",
+                   help="file listing genome paths, one per line")
+    p.add_argument("--full-matrix", action="store_true",
+                   help="PHYLIP-style lower-triangular matrix output "
+                        "(skani triangle's default form)")
+    p.add_argument("--distance", action="store_true",
+                   help="output distance (100 - ANI) instead of ANI")
+    p.add_argument("-E", "--sparse", action="store_true",
+                   help="sparse TSV edge list (this CLI's default; flag "
+                        "kept for skani compatibility)")
+    p.add_argument("--mesh", default=None, metavar="DBxBATCH",
+                   help="several devices (not ported yet)")
+    _add_sketch_params(p)
+    _add_query_params(p)
+    p.set_defaults(func=cmd_triangle)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.command in ("sketch", "search"):
+        return _not_ported(args.command)
+    for flag in ("ci", "mesh"):
+        if getattr(args, flag, None):
+            return _not_ported(flag)
+    import torch
+    if torch.device(args.device).type == "cuda" and \
+            not torch.cuda.is_available():
+        print(f"error: --device {args.device}: CUDA is not available; pass "
+              f"--device cpu to run on the CPU", file=sys.stderr)
+        return 1
+    try:
+        return args.func(args)
+    except NotImplementedError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,8 @@
 """Database: the pyskani-compatible user API over the PyTorch engine.
 
 Port of the in-memory path of the JAX package's ``database.py``: the same
-constructor defaults, ``sketch`` and ``query`` (batched marker screen,
+constructor defaults, ``sketch``, ``sketch_many`` (batched sketching of
+many genomes) and ``query`` (batched marker screen,
 then the chain pipelines over the shortlist, then the regression and
 aligned-fraction filters, then ``Hit``).  Shortlisted references chain on
 the packed block pipeline (``chain_block``) unless a contig of theirs
@@ -12,8 +13,8 @@ live on ``device``, which is the card unless the caller passes
 ``device="cpu"``; there is no silent fallback to the CPU.
 
 Not ported yet (each raises ``NotImplementedError``): on-disk stores
-(``path=``, ``open``, ``load``, ``save``), ``sketch_many``, ``est_ci``,
-and k other than 15.
+(``path=``, ``open``, ``load``, ``save``), ``est_ci``, and k other than
+15.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from .hit import Hit
 from .ops.chain import ChainConfig, EngineBudgets, rcid_bits_for
 from .ops.screen import screen_batch
 from .ops.sketch import (HostSketch, contig_budget_for, round_up,
-                         sketch_genome_device)
+                         sketch_genome_device, sketch_genomes_device)
 from .params import (MIN_ANI_KEEP, CommandParams, SEARCH_ANI_CUTOFF_DEFAULT,
                      SketchParams)
 
@@ -196,7 +197,14 @@ class Database:
         return Sketch(host, self._params.c)
 
     def sketch_many(self, named_contigs) -> None:
-        _not_ported("Database.sketch_many (batched sketching)")
+        """Add many reference genomes, sketched in batched passes of up
+        to 8 genomes of similar size; registered in input order.
+        ``named_contigs`` is an iterable of (name, [contig, ...])."""
+        items = [(name, [_as_bytes(c) for c in contigs])
+                 for name, contigs in named_contigs]
+        for host in sketch_genomes_device(items, self._params,
+                                          device=self._device):
+            self._register_sketch(host)
 
     def _register_sketch(self, host: HostSketch) -> None:
         """Register a sketch (made here or by ``convert.sketch_from_numpy``)."""

@@ -1,22 +1,25 @@
-"""Batched pair engine: one query against many stacked references.
+"""Batched pair engine over stacked sketch tensors.
 
-Port of the JAX package's ``engine/batch.py`` minus the triangle:
-sketches are padded to common budgets and stacked on a leading axis;
-``one_vs_many`` chains a query against chunks of the stack, one
-``chain_block`` per chunk, and ``one_vs_many_pairs`` one ``chain_pairs``
-per chunk (Python loops where JAX used ``lax.map``).
+Port of the JAX package's ``engine/batch.py``: sketches are padded to
+common budgets and stacked on a leading axis.  ``one_vs_many`` chains a
+query against chunks of the stack, one ``chain_block`` per chunk;
+``one_vs_many_pairs`` and ``pairs_ani`` run one ``chain_pairs`` per
+chunk; ``triangle`` is the all-vs-all mode (``chain_triangle`` per
+genome group, ``chain_block`` tiles across groups, ``pairs_ani`` for
+genomes past the packed range).  Python loops stand where JAX used
+``lax.map``.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 import torch
 
 from ..ops.chain import (ChainConfig, EngineBudgets, chain_block,
-                         chain_pairs)
+                         chain_pairs, chain_triangle, rcid_bits_for)
 from ..ops.sketch import (FIELDS, I32_SENTINEL, U32_SENTINEL, DeviceSketch,
                           HostSketch, contig_budget_for, pad_to,
                           round_up)
@@ -124,6 +127,141 @@ def one_vs_many_pairs(refs: DeviceSketch, query: DeviceSketch, ref_idx,
         parts.append(chain_pairs(take_sketch(refs, sel), q, cfg=cfg,
                                  budgets=budgets))
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def pairs_ani(batch: DeviceSketch, ref_idx, query_idx, *, cfg: ChainConfig,
+              budgets: EngineBudgets) -> dict:
+    """ANI/AF for an arbitrary list of (ref, query) index pairs of a
+    stacked batch, on the full-range per-pair pipeline: one
+    ``chain_pairs`` (one DP launch) per chunk of 4 pairs.  Every
+    pair has its own anchor pool, so the last chunk needs no padding (the
+    JAX package pads it with the pair (0, 0)).  Returns a dict of [P]
+    tensors."""
+    ri, qi = (torch.as_tensor(np.asarray(x), dtype=torch.int64,
+                              device=batch.device)
+              for x in (ref_idx, query_idx))
+    parts = [chain_pairs(take_sketch(batch, ri[lo:lo + 4]),
+                         take_sketch(batch, qi[lo:lo + 4]), cfg=cfg,
+                         budgets=budgets)
+             for lo in range(0, ri.shape[0], 4)]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def default_budgets(sketches: List[HostSketch], batch: DeviceSketch,
+                    cfg: ChainConfig) -> EngineBudgets:
+    """The triangle's budgets: fragments for the largest genome, and an
+    anchor pool per pair from the stack's seed budget."""
+    fl = cfg.fragment_length
+    nf = round_up(max(s.n_fragments(fl) for s in sketches) + 2, 128)
+    return EngineBudgets(
+        max_anchors=round_up(batch.kmers.shape[1] * 3 // 2 + 4096, 8192),
+        max_fragments=nf,
+        max_anchors_per_fragment=256)
+
+
+def max_triangle_group(budgets: EngineBudgets, cap: int = 32) -> int:
+    """Largest genome-group size whose triangle fits the pair-grid limit
+    (pairs * max_fragments <= 2^17, see chain_triangle)."""
+    g = cap
+    while g > 2 and (g * (g - 1) // 2) * budgets.max_fragments > (1 << 17):
+        g -= 1
+    return g
+
+
+def triangle(sketches: List[HostSketch], cfg: ChainConfig | None = None,
+             budgets: EngineBudgets | None = None, block: int | None = None,
+             anchors_per_pair: int | None = None, group: int = 32):
+    """All-vs-all ANI over a genome set (skani's ``triangle`` mode), on
+    the sketches' device.
+
+    Genomes are split into groups of up to ``group``: each group's own
+    pairs run as ONE ``chain_triangle``, and each cross-group rectangle
+    as ``chain_block`` tiles of ``block`` x ``block`` (default: the group
+    size, halved until it fits the pair-grid limit), the last tiles
+    padded with their first genome, which shares the tile's anchor pool
+    as in the JAX package.  A genome whose contigs pass the packed
+    position range of the stack's contig table, or whose total is 2^30 bp
+    or more, takes ``pairs_ani`` for every pair it is in (the smaller
+    index as the reference).  ``anchors_per_pair`` sizes each call's
+    shared anchor pool (default: the per-pair budget).
+
+    Returns (ref_idx, query_idx, dict of numpy arrays) over the N(N-1)/2
+    unordered pairs in ``np.triu_indices`` order.  A key that one path
+    lacks reads 0 for the other paths' pairs, as in the JAX package.
+    """
+    cfg = cfg or ChainConfig()
+    n = len(sketches)
+    batch = stack_sketches(sketches)
+    if budgets is None:
+        budgets = default_budgets(sketches, batch, cfg)
+    group = max_triangle_group(budgets, min(group, n))
+    app = anchors_per_pair or budgets.max_anchors
+    if block is None:
+        block = group
+        while block > 1 and block * block * budgets.max_fragments > (1 << 17):
+            block //= 2
+    dev = batch.device
+
+    def take(idx):
+        return take_sketch(batch, torch.as_tensor(idx, dtype=torch.int64,
+                                                  device=dev))
+
+    cap = 1 << (32 - rcid_bits_for(batch.contig_lengths.shape[1]))
+    giant = {i for i, s in enumerate(sketches)
+             if max(s.lengths, default=0) >= cap or s.total_len >= (1 << 30)}
+    pk = np.array([i for i in range(n) if i not in giant], np.int64)
+    starts = list(range(0, len(pk), group))
+    pending = []          # (ref indices, query indices, dict of [P] tensors)
+    for a in starts:
+        gidx = pk[a:a + group]
+        if len(gidx) < 2:
+            # no pairs inside; the cross-group tiles cover its other pairs
+            continue
+        out = chain_triangle(
+            take(gidx), cfg=cfg, budgets=budgets,
+            total_anchors=round_up(len(gidx) * (len(gidx) - 1) // 2 * app,
+                                   8192))
+        tri_r, tri_q = np.triu_indices(len(gidx), k=1)
+        pending.append((gidx[tri_r], gidx[tri_q], out))
+    fb = [(i, j) for i in range(n) for j in range(i + 1, n)
+          if i in giant or j in giant]
+    if fb:
+        ri_f, qi_f = (np.array(x, np.int64) for x in zip(*fb))
+        pending.append((ri_f, qi_f, pairs_ani(batch, ri_f, qi_f, cfg=cfg,
+                                              budgets=budgets)))
+    for a in starts:
+        ridx_g = pk[a:a + group]
+        for b in starts:
+            if b <= a:
+                continue
+            qidx_g = pk[b:b + group]
+            for bi in range(0, len(ridx_g), block):
+                for bj in range(0, len(qidx_g), block):
+                    ridx = ridx_g[bi:bi + block]
+                    qidx = qidx_g[bj:bj + block]
+                    rpad = np.concatenate(
+                        [ridx, np.full(block - len(ridx), ridx[0])])
+                    qpad = np.concatenate(
+                        [qidx, np.full(block - len(qidx), qidx[0])])
+                    out = chain_block(
+                        take(rpad), take(qpad), cfg=cfg, budgets=budgets,
+                        total_anchors=round_up(block * block * app, 8192))
+                    rr, qq = np.meshgrid(ridx, qidx, indexing="ij")
+                    pending.append((rr.reshape(-1), qq.reshape(-1), {
+                        k: v[:len(ridx), :len(qidx)].reshape(-1)
+                        for k, v in out.items()}))
+
+    mats = {}
+    for ridx, qidx, out in pending:
+        for key, val in out.items():
+            arr = val.cpu().numpy()
+            if key not in mats:
+                mats[key] = np.zeros((n, n), arr.dtype)
+            mats[key][ridx, qidx] = arr
+    ri, qi = np.triu_indices(n, k=1)
+    out = {k: v[ri, qi] for k, v in mats.items()}
+    check_overflow(out, budgets)
+    return ri, qi, out
 
 
 def check_overflow(out: dict, budgets: EngineBudgets,

@@ -1,9 +1,11 @@
 """Anchor chaining + ANI/AF estimation (PyTorch).
 
 Port of the JAX package's ``ops/chain.py``: the block path
-(``chain_block``) and the full-range per-pair path (``chain_pairs``,
-which keeps contig-local coordinates and takes what the packed block
-grid cannot hold).  For G_r references x G_q queries, ``chain_block``:
+(``chain_block``), its all-vs-all form over one genome stack
+(``chain_triangle``: a self-join in place of step 1, the rest shared),
+and the full-range per-pair path (``chain_pairs``, which keeps
+contig-local coordinates and takes what the packed block grid cannot
+hold).  For G_r references x G_q queries, ``chain_block``:
 
 1. ``_block_join``: every seed table goes into ONE stable sort by
    (kmer, tag); each query occurrence expands against its k-mer's whole
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .chain_dp import chain_dp
@@ -608,7 +611,6 @@ def chain_block(refs: DeviceSketch, queries: DeviceSketch, *,
     _check_supported(cfg)
     fl = cfg.fragment_length
     NF = budgets.max_fragments
-    PF = budgets.max_anchors_per_fragment
     G_r = refs.kmers.shape[0]
     G_q = queries.kmers.shape[0]
     P = G_r * G_q
@@ -617,12 +619,31 @@ def chain_block(refs: DeviceSketch, queries: DeviceSketch, *,
                          f"exceeds 2^17 (shrink the block or fragments)")
     if total_anchors is None:
         total_anchors = P * budgets.max_anchors
-    C = queries.contig_lengths.shape[1]
     dev = refs.kmers.device
-    i64 = torch.int64
 
     q_starts, q_frag_offs = _contig_layout(queries, fl)   # [G_q, C+1]
     a = _block_join(refs, queries, cfg, total_anchors, q_frag_offs, NF)
+    pair_ids = torch.arange(P, device=dev, dtype=torch.int64)
+    out = _chain_anchors(refs, queries, a, q_starts, q_frag_offs,
+                         pair_ids // G_q, pair_ids % G_q, cfg, budgets)
+    return {k: v.reshape((G_r, G_q) + v.shape[1:]) for k, v in out.items()}
+
+
+def _chain_anchors(refs: DeviceSketch, queries: DeviceSketch, a: dict,
+                   q_starts, q_frag_offs, tail_r, tail_q, cfg: ChainConfig,
+                   budgets: EngineBudgets) -> dict:
+    """The packed pipeline after a join: anchor sort, [P*NF, PF] grid,
+    ONE chain-DP launch, post-DP statistics.  ``a`` holds the join's
+    valid anchors (rowid = pair*NF + query fragment); pair p chains
+    ``refs[tail_r[p]]`` against ``queries[tail_q[p]]``.  Returns a dict
+    of [P] tensors."""
+    fl = cfg.fragment_length
+    NF = budgets.max_fragments
+    PF = budgets.max_anchors_per_fragment
+    P = tail_r.shape[0]
+    C = queries.contig_lengths.shape[1]
+    dev = refs.kmers.device
+    i64 = torch.int64
 
     # sort by (rowid<<14 | rcid, rpos, qpos<<2 | rev<<1 | 1): the tuple is
     # unique per anchor, so the order is total.  Two stable passes: the
@@ -655,11 +676,9 @@ def chain_block(refs: DeviceSketch, queries: DeviceSketch, *,
 
     grid = _dp_grid_from_words(w1g, w2g, rbits)
     scores, roots = chain_dp(grid["qpos"], grid["rpos"], grid["meta"], cfg)
-    pair_ids = torch.arange(P, device=dev, dtype=i64)
     _, r_frag_offs = _contig_layout(refs, fl)
     out = _post_dp_block(refs, queries, w1g, w2g, scores, roots, q_starts,
-                         q_frag_offs, cfg, budgets,
-                         pair_ids // G_q, pair_ids % G_q,
+                         q_frag_offs, cfg, budgets, tail_r, tail_q,
                          r_frag_offs, frag_cid_tab, rbits)
     out["pos_overflow"] = torch.full((P,), pos_overflow, dtype=torch.bool,
                                      device=dev)
@@ -667,7 +686,128 @@ def chain_block(refs: DeviceSketch, queries: DeviceSketch, *,
     out["n_anchors"] = (bounds[1:] - bounds[:-1]).to(torch.int32)
     out["anchors_overflow"] = torch.full(
         (P,), a["anchors_overflow"], dtype=torch.bool, device=dev)
-    return {k: v.reshape((G_r, G_q) + v.shape[1:]) for k, v in out.items()}
+    return out
+
+
+def triu_pairs(G: int):
+    """(ref_idx, query_idx) int32 arrays over the strict upper triangle,
+    in the order :func:`chain_triangle` emits its [P] outputs (ref <
+    query, row-major)."""
+    ri, qi = np.triu_indices(G, k=1)
+    return ri.astype("int32"), qi.astype("int32")
+
+
+def _triangle_self_join(gs: DeviceSketch, cfg: ChainConfig,
+                        total_anchors: int, q_frag_offs: torch.Tensor,
+                        NF: int):
+    """Anchors for EVERY unordered pair (i < j) of one genome stack from
+    ONE self-join sort: each seed table enters the sort once.
+
+    Every seed occurrence carries gcs = g<<15 | contig<<1 | strand, and
+    one stable sort by ``kmer<<30 | gcs`` orders each k-mer run by genome
+    (ties in seed-table order, as the JAX package's stable 2-key sort).
+    An occurrence acting as the QUERY (genome j) expands against the run
+    prefix of the genomes i < j: the references of all its upper-triangle
+    pairs at once, and never itself.  The multiplicity cap is the
+    own-multiplicity premask of ``_block_join``.
+
+    Unlike ``_block_join``, an occurrence whose query fragment lies past
+    NF takes no pool slots: it is dropped BEFORE the expansion is counted
+    (the JAX join's ``ok`` tests it), so it counts toward neither the pool
+    nor ``anchors_overflow``.  Anchors come out in (source, j) order, so a
+    pool clipped at ``total_anchors`` keeps the JAX package's anchors.
+    Returns the anchors (all valid) and the join's counts."""
+    G, S = gs.kmers.shape
+    C = gs.contig_lengths.shape[1]
+    fl = cfg.fragment_length
+    cap = cfg.max_seed_multiplicity
+    dev = gs.kmers.device
+    i64 = torch.int64
+    n = G * S
+    if not (n < (1 << 30) and G < (1 << 15)):
+        raise ValueError("triangle join: seed tables too large")
+
+    kmer = torch.where(gs.own_mult <= cap, gs.kmers,
+                       U32_SENTINEL).reshape(-1)
+    g_id = torch.arange(n, device=dev, dtype=i64) // S
+    cid = gs.contig_ids.reshape(-1).to(i64).clamp(0, C - 1)
+    pos = gs.positions.reshape(-1).to(i64)
+    gcs = (g_id << 15) | (cid << 1) | gs.strands.reshape(-1).to(i64)
+    frag = q_frag_offs.reshape(-1)[g_id * (C + 1) + cid] + pos // fl
+    fragw = torch.where(frag < NF, g_id * NF + frag, -1)
+
+    # (kmer, gcs) in one int64: kmer (u32) in bits 61:30, gcs < 2^30
+    order = torch.sort((kmer << 30) | gcs, stable=True).indices
+    kmer_s, gcs_s, pos_s, fragw_s = (x[order] for x in (kmer, gcs, pos,
+                                                        fragw))
+
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = kmer_s[1:] != kmer_s[:-1]
+    run_start = torch.nonzero(first).flatten()[torch.cumsum(first, 0) - 1]
+    # first entry of MY genome's group inside the run: the entries before
+    # it, back to the run start, belong to strictly smaller genomes
+    gchg = first.clone()
+    gchg[1:] |= (gcs_s[1:] >> 15) != (gcs_s[:-1] >> 15)
+    gfirst = torch.nonzero(gchg).flatten()[torch.cumsum(gchg, 0) - 1]
+    rc = gfirst - run_start
+    ok = (kmer_s != U32_SENTINEL) & (rc > 0) & (fragw_s >= 0)
+    want = int(rc[ok].sum())
+    total = min(want, total_anchors)
+
+    # expansion, as in _block_join: slot t belongs to the ok entry whose
+    # run of rc slots covers it, at rank j inside that run
+    src_ok = torch.nonzero(ok).flatten()
+    cnt = rc[src_ok]
+    cend = torch.cumsum(cnt, 0)
+    t = torch.arange(total, device=dev, dtype=i64)
+    k = torch.searchsorted(cend, t, right=True)
+    src = src_ok[k]
+    r_idx = run_start[src] + t - (cend[k] - cnt[k])
+
+    qgcs, rgcs = gcs_s[src], gcs_s[r_idx]
+    g_r, g_q = rgcs >> 15, qgcs >> 15
+    # strict-upper-triangle pair index (ref = the smaller genome id)
+    tri = g_r * G - (g_r * (g_r + 1)) // 2 + (g_q - g_r - 1)
+    return dict(
+        qpos=pos_s[src],
+        rowid=tri * NF + fragw_s[src] - g_q * NF,
+        rpos=pos_s[r_idx],
+        rcid=(rgcs >> 1) & 0x3FFF,
+        rev=(qgcs & 1) != (rgcs & 1),
+        n_anchors=total,
+        anchors_overflow=want > total_anchors,
+    )
+
+
+def chain_triangle(genomes: DeviceSketch, *, cfg: ChainConfig,
+                   budgets: EngineBudgets,
+                   total_anchors: int | None = None) -> dict:
+    """All unordered pairs of a genome stack: ONE join sort, ONE DP.
+
+    The self-join sorts each seed table once, and no lower-triangle or
+    diagonal grid rows are built: pair p is
+    ``(triu_pairs(G)[0][p], triu_pairs(G)[1][p])``, the smaller genome as
+    the reference.  ``total_anchors`` is the anchor budget of the whole
+    triangle (default: the per-pair budget times the pairs).  Returns a
+    dict of [G*(G-1)/2] tensors with the keys of :func:`chain_block`."""
+    _check_supported(cfg)
+    NF = budgets.max_fragments
+    G = genomes.kmers.shape[0]
+    P = (G * (G - 1)) // 2
+    if P * NF > (1 << 17):
+        raise ValueError(f"triangle too large: pairs*max_fragments = "
+                         f"{P * NF} exceeds 2^17 (split the genome set)")
+    if total_anchors is None:
+        total_anchors = P * budgets.max_anchors
+    dev = genomes.kmers.device
+
+    q_starts, q_frag_offs = _contig_layout(genomes, cfg.fragment_length)
+    a = _triangle_self_join(genomes, cfg, total_anchors, q_frag_offs, NF)
+    tri_r, tri_q = (torch.from_numpy(x).to(dev, torch.int64)
+                    for x in triu_pairs(G))
+    # every genome is a query, so the position checks cover them all
+    return _chain_anchors(genomes, genomes, a, q_starts, q_frag_offs, tri_r,
+                          tri_q, cfg, budgets)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """FracMinHash sketching on PyTorch tensors.
 
 Port of the JAX package's ``ops/sketch.py`` (``sketch_kernel``, the
-budget helpers, ``sketch_genome_device``).  The semantics are the same:
+budget helpers, ``sketch_genome_device``, ``sketch_genomes_device``).
+The semantics are the same:
 all contigs of a genome are concatenated into one buffer, every position
 gets its canonical k=15 seed window and k=21 marker window, both are
 hashed with Wang's 64-bit mix and kept below ``(2^64-1)//c``, survivors
@@ -11,6 +12,8 @@ sorted by (kmer, contig, position) beside a (contig, position) view.
 Where the JAX code bent around the TPU, this port takes the GPU-natural
 form and stays bit-equal on every output:
 
+* the bases are encoded to 2-bit codes on the device
+  (``encode_pack``), so the host only copies the bytes;
 * 64-bit values ride int64 tensors (multiply, add and ``<<`` wrap mod
   2^64 with the same bits; ``>>`` is masked to a logical shift), so the
   u32-pair emulation of the 64-bit hash is not needed;
@@ -20,6 +23,9 @@ form and stays bit-equal on every output:
 * the survivors are already in (contig, position) order, so the
   kmer-sorted table is ONE stable sort by kmer, and the position-sorted
   view is the compacted table itself;
+* a stack of genomes (``sketch_genomes_device``; JAX vmaps the kernel)
+  is one [B, L] pass: one ``nonzero`` over the stack with per-row ranks
+  for the budgets, and sort keys led by the genome index;
 * genomes above ``GIANT_SKETCH_BUFFER`` are sketched in chunked calls
   whose tables are merged on the device (the JAX package merges them in
   numpy on the host).
@@ -41,13 +47,6 @@ from ..params import MIN_LENGTH_CONTIG, SketchParams
 U32_SENTINEL = 0xFFFFFFFF
 I32_SENTINEL = 0x7FFFFFFF
 I64_MAX = (1 << 63) - 1
-
-# 2-bit encoding: A=0, C=1, G=2, T=3 (upper and lower case); every other
-# byte (N included) maps to 0, as skani's BYTE_TO_SEQ table does
-BYTE_TO_SEQ = np.zeros(256, dtype=np.uint8)
-for _b, _v in ((b"Aa", 0), (b"Cc", 1), (b"Gg", 2), (b"Tt", 3)):
-    for _ch in _b:
-        BYTE_TO_SEQ[_ch] = _v
 
 
 @dataclasses.dataclass
@@ -99,7 +98,8 @@ FIELDS = tuple(f.name for f in dataclasses.fields(DeviceSketch))
 
 
 def _rolling_windows(codes: torch.Tensor):
-    """All rolling windows the scan needs, by log-doubling (int64 lanes).
+    """All rolling windows the scan needs, by log-doubling (int64 lanes),
+    along the last axis of ``codes`` ([L] or [B, L]).
 
     Returns (fwd15, rev15, marker_fwd, marker_rev) where entry i covers the
     window ending at position i.  Forward k-mers pack the newest base in
@@ -109,34 +109,37 @@ def _rolling_windows(codes: torch.Tensor):
     buffer wraps (``torch.roll``), as ``jnp.roll`` does; callers mask it
     with ``pos_in_contig >= k-1``.
     """
+    def roll(x, s):
+        return torch.roll(x, s, -1)
+
     # intermediates are dropped as soon as they are used: a genome-length
     # int64 array is 8 bytes per base
     c = codes.to(torch.int64)
     r1 = 3 - c
-    f2 = (torch.roll(c, 1) << 2) | c
+    f2 = (roll(c, 1) << 2) | c
     del c
-    f4 = (torch.roll(f2, 2) << 4) | f2
+    f4 = (roll(f2, 2) << 4) | f2
     del f2
-    f8 = (torch.roll(f4, 4) << 8) | f4
+    f8 = (roll(f4, 4) << 8) | f4
     del f4
-    f16 = (torch.roll(f8, 8) << 16) | f8
+    f16 = (roll(f8, 8) << 16) | f8
     fwd15 = f16 & 0x3FFFFFFF
     f5 = f8 & 0x3FF                       # newest 5 bases
     del f8
-    m_f = (torch.roll(f5, 16) << 32) | f16     # 42-bit forward marker k-mer
+    m_f = (roll(f5, 16) << 32) | f16      # 42-bit forward marker k-mer
     del f5, f16
 
-    r2 = (r1 << 2) | torch.roll(r1, 1)
+    r2 = (r1 << 2) | roll(r1, 1)
     del r1
-    r4 = (r2 << 4) | torch.roll(r2, 2)
+    r4 = (r2 << 4) | roll(r2, 2)
     del r2
-    r8 = (r4 << 8) | torch.roll(r4, 4)
+    r8 = (r4 << 8) | roll(r4, 4)
     del r4
-    r16 = (r8 << 16) | torch.roll(r8, 8)
+    r16 = (r8 << 16) | roll(r8, 8)
     rev15 = r16 >> 2
     r5 = r8 >> 6                          # newest 5 complements (top)
     del r8
-    m_r = (r5 << 32) | torch.roll(r16, 5)      # 42-bit reverse marker k-mer
+    m_r = (r5 << 32) | roll(r16, 5)       # 42-bit reverse marker k-mer
     return fwd15, rev15, m_f, m_r
 
 
@@ -166,74 +169,102 @@ def _below(h: torch.Tensor, thr: int) -> torch.Tensor:
     return (h >= 0) & (h < thr)
 
 
-def _compact(mask: torch.Tensor, budget: int, arrays, sentinels):
-    """Gather ``arrays`` at the set positions of ``mask`` (ascending),
-    keeping the first ``budget`` and padding with per-array sentinels.
-    Returns (count, gathered...)."""
-    src = torch.nonzero(mask).flatten()[:budget]
-    count = src.numel()
-    out = []
-    for arr, sent in zip(arrays, sentinels):
-        col = torch.full((budget,), sent, dtype=arr.dtype, device=arr.device)
-        col[:count] = arr[src]
-        out.append(col)
-    return count, out
+def _row_ranks(b: torch.Tensor, B: int) -> torch.Tensor:
+    """Rank of every entry inside its row, for ascending row ids ``b``."""
+    cnt = torch.bincount(b, minlength=B)
+    return torch.arange(b.shape[0], device=b.device) - \
+        (torch.cumsum(cnt, 0) - cnt)[b]
 
 
-def encode_pack_host(raw: np.ndarray) -> np.ndarray:
-    """ASCII bytes -> 2-bit codes packed 4/byte (host side, vectorised).
-    Length must be a multiple of 4 (length buckets are)."""
-    codes = BYTE_TO_SEQ[raw]
-    q = codes.reshape(-1, 4)
-    return (q[:, 0] | (q[:, 1] << 2) | (q[:, 2] << 4) |
-            (q[:, 3] << 6)).astype(np.uint8)
+def _scatter_rows(b, rank, vals, B: int, budget: int, fill):
+    """[B, budget] table holding ``vals`` at (b, rank), ``fill`` elsewhere."""
+    out = torch.full((B, budget), fill, dtype=vals.dtype, device=vals.device)
+    out[b, rank] = vals
+    return out
 
 
-def sketch_kernel(packed_codes: torch.Tensor, contig_starts: torch.Tensor,
-                  n_contigs: int, valid_floor: torch.Tensor | None = None, *,
-                  k: int, marker_k: int, c: int, marker_c: int,
-                  seed_budget: int, marker_budget: int):
-    """All-positions FracMinHash scan + compaction for one genome.
+def encode_pack(raw: torch.Tensor) -> torch.Tensor:
+    """ASCII bytes (uint8 [..., L]) -> 2-bit codes packed 4 per byte,
+    oldest base in bits 1:0 ([..., L//4]), on ``raw``'s device: A=0,
+    C=1, G=2, T=3 in either case, every other byte (N included) 0, as
+    skani's BYTE_TO_SEQ table and the JAX package's ``encode_pack_host``.
+    L must be a multiple of 4 (length buckets are).  Encoding on the card
+    keeps the host to one copy of the bytes."""
+    up = raw & 0xDF                 # upper case: only c, g, t reach C, G, T
+    codes = (up == ord("T")).to(torch.uint8) * 3
+    codes = torch.where(up == ord("G"), 2, codes)
+    codes = torch.where(up == ord("C"), 1, codes)
+    q = codes.view(raw.shape[:-1] + (-1, 4))
+    return q[..., 0] | (q[..., 1] << 2) | (q[..., 2] << 4) | (q[..., 3] << 6)
 
-    ``packed_codes`` is uint8 [L//4] (``encode_pack_host``, oldest base in
-    bits 1:0); ``contig_starts`` int32 [C+1] holds the global start of
-    each contig with ``contig_starts[n_contigs] = total_len``.
-    ``valid_floor`` (int32 [C+1], optional) is a global window-end floor
-    per contig: the chunked giant-genome path feeds continuation pieces
-    of a split contig with a K-1 overlap and masks the overlap's window
-    ends with it.  Returns a dict with the same keys, values and (int64
-    for u32) types as the JAX ``sketch_kernel``.
+
+_COUNTS = ("n_seeds", "n_markers", "n_seeds_want", "n_markers_want")
+# the genome index rides bit 40 and up of the flat starts-table keys
+_ROW_SHIFT = 40
+
+
+def sketch_kernel_batch(packed_codes: torch.Tensor,
+                        contig_starts: torch.Tensor, n_contigs,
+                        valid_floor: torch.Tensor | None = None, *,
+                        k: int, marker_k: int, c: int, marker_c: int,
+                        seed_budget: int, marker_budget: int) -> dict:
+    """All-positions FracMinHash scan + compaction for a stack of B genomes
+    in one pass (the JAX package vmaps ``sketch_kernel``).
+
+    ``packed_codes`` is uint8 [B, L//4] (:func:`encode_pack`, oldest base
+    in bits 1:0); ``contig_starts`` int32 [B, C+1] holds the global start
+    of each contig with ``contig_starts[b, n_contigs[b]]`` the genome's
+    total length; ``n_contigs`` is [B].  ``valid_floor`` (int32 [B, C+1],
+    optional) is a global window-end floor per contig: the chunked
+    giant-genome path feeds continuation pieces of a split contig with a
+    K-1 overlap and masks the overlap's window ends with it.
+
+    Row b equals the JAX ``sketch_kernel`` on genome b with these budgets:
+    the union of seed and marker survivors is clipped per row to the
+    summed budgets, then seeds and markers to their own (one ``nonzero``
+    over the stack and per-row ranks).  The seed table is one stable sort
+    by ``b<<32 | kmer``, the markers one ``unique`` of ``b<<42 | marker``.
+    Returns a dict of [B, ...] tensors (int64 for u32 values) with the
+    JAX keys; the four counts are int64 [B].
     """
     if k != 15 or marker_k != 21:
         raise NotImplementedError(
             f"k={k} / marker_k={marker_k}: the port implements the fused "
             f"k=15 / marker_k=21 sketch only (generic k is still to port)")
     dev = packed_codes.device
+    i64 = torch.int64
     thr = (2**64 - 1) // c
     mthr = (2**64 - 1) // marker_c
-    L = packed_codes.shape[0] * 4
-    C = contig_starts.shape[0] - 1
-    n_contigs = int(n_contigs)
+    B, L = packed_codes.shape[0], packed_codes.shape[1] * 4
+    C = contig_starts.shape[1] - 1
+    ncon = torch.as_tensor(n_contigs, device=dev).to(i64).reshape(B)
 
     shifts = torch.arange(4, device=dev, dtype=torch.uint8) * 2
-    codes = ((packed_codes[:, None] >> shifts[None, :]) & 3).reshape(L)
+    codes = ((packed_codes[:, :, None] >> shifts) & 3).reshape(B, L)
 
     # in-contig position: i - (global start of my contig).  The JAX
     # package fills it with a scatter-max of the starts and a running
-    # max; a binary search of the (tiny, ascending) starts table gives
-    # the same start for every position
-    starts64 = contig_starts.to(torch.int64)
-    ii = torch.arange(L, device=dev, dtype=torch.int64)
-    table = starts64[:n_contigs + 1]
-    my_contig = torch.searchsorted(table, ii, right=True) - 1
-    pos_in_contig = ii - table[my_contig]
-    total_len = int(contig_starts[min(max(n_contigs, 0), C)])
-    in_seq = ii < total_len
+    # max; one binary search of the starts tables, flattened as
+    # b<<40 | start (slots past a genome's last contig pushed out of
+    # reach), gives the same start for every position
+    starts64 = contig_starts.to(i64)
+    rows = torch.arange(B, device=dev, dtype=i64)[:, None]
+    slot = torch.arange(C + 1, device=dev)[None, :]
+    far = (1 << _ROW_SHIFT) - 1
+    tab = ((rows << _ROW_SHIFT) +
+           torch.where(slot <= ncon[:, None], starts64, far)).reshape(-1)
+    ii = torch.arange(L, device=dev, dtype=i64)[None, :]
+    key = (rows << _ROW_SHIFT) + ii
+    at = (torch.searchsorted(tab, key.reshape(-1), right=True) - 1).view(B, L)
+    pos_in_contig = key - tab[at]
+    del key
+    total = starts64.gather(1, ncon.clamp(0, C)[:, None])
+    in_seq = ii < total
     if valid_floor is not None:
         # the floors increase with the contig (floor < next start), so the
         # contig found above also picks the floor
-        in_seq &= ii >= valid_floor.to(torch.int64)[:n_contigs + 1][my_contig]
-    del my_contig
+        in_seq &= ii >= valid_floor.to(i64).reshape(-1)[at]
+    del at
 
     fwd, rev, mfwd, mrev = _rolling_windows(codes)
     del codes
@@ -248,55 +279,107 @@ def sketch_kernel(packed_codes: torch.Tensor, contig_starts: torch.Tensor,
     mh = mm_hash64(mcanon)
     marker_mask = in_seq & (pos_in_contig >= marker_k - 1) & _below(mh, mthr)
     del mh, pos_in_contig, in_seq
-    n_seeds_want = int(seed_mask.sum())
-    n_markers_want = int(marker_mask.sum())
 
-    # ---- union compaction (clipped to the summed budgets, as in JAX) ----
-    union_budget = seed_budget + marker_budget
-    u_src = torch.nonzero(seed_mask | marker_mask).flatten()[:union_budget]
-    u_seed = seed_mask[u_src]
-    u_marker = marker_mask[u_src]
+    # ---- union compaction (clipped per row to the summed budgets) ----
+    u_src = torch.nonzero((seed_mask | marker_mask).reshape(-1)).flatten()
+    u_b = u_src // L
+    keep = _row_ranks(u_b, B) < seed_budget + marker_budget
+    u_src, u_b = u_src[keep], u_b[keep]
+    u_seed = seed_mask.reshape(-1)[u_src]
+    u_marker = marker_mask.reshape(-1)[u_src]
     # survivor contig id: count of table starts <= position, minus one
-    cid_u = (torch.searchsorted(table, u_src, right=True) - 1).clamp(0, C - 1)
-    pos_u = u_src - starts64[cid_u]
+    u_key = (u_b << _ROW_SHIFT) + (u_src - u_b * L)
+    u_at = torch.searchsorted(tab, u_key, right=True) - 1
+    cid_u = (u_at - u_b * (C + 1)).clamp(0, C - 1)
+    pos_u = u_key - tab[u_b * (C + 1) + cid_u]
 
-    n_seeds, (s_kmer, s_pos, s_cid, s_strand) = _compact(
-        u_seed, seed_budget,
-        (canon[u_src], pos_u.to(torch.int32), cid_u.to(torch.int32),
-         strand[u_src]),
-        (U32_SENTINEL, I32_SENTINEL, I32_SENTINEL, False))
-    # survivors are in ascending global position = (contig, position)
-    # order, so ONE stable sort by kmer gives the (kmer, contig,
-    # position) order, and the unsorted table IS the position view
-    order = torch.sort(s_kmer, stable=True).indices
-    kmers = s_kmer[order]
-    _, inv, cnt = torch.unique_consecutive(kmers, return_inverse=True,
+    # ---- seeds: the first seed_budget per row ----
+    s = torch.nonzero(u_seed).flatten()
+    s_b = u_b[s]
+    s_rank = _row_ranks(s_b, B)
+    s, s_b, s_rank = (x[s_rank < seed_budget] for x in (s, s_b, s_rank))
+    src = u_src[s]
+    s_kmer = canon.reshape(-1)[src]
+    s_pos = pos_u[s].to(torch.int32)
+    s_cid = cid_u[s].to(torch.int32)
+    s_strand = strand.reshape(-1)[src]
+    # survivors are in ascending (genome, position) = (genome, contig,
+    # position) order, so ONE stable sort by (genome, kmer) gives the
+    # (kmer, contig, position) order per genome, and the unsorted table IS
+    # the position view
+    s_key = (s_b << 32) | s_kmer
+    order = torch.sort(s_key, stable=True).indices
+    _, inv, cnt = torch.unique_consecutive(s_key[order], return_inverse=True,
                                            return_counts=True)
-    own_mult = cnt[inv].to(torch.int32)
-    p_own = torch.empty_like(own_mult)
-    p_own[order] = own_mult
+    own_sorted = cnt[inv].to(torch.int32)
+    own = torch.empty_like(own_sorted)
+    own[order] = own_sorted
+    o_b = s_b[order]
+    o_rank = _row_ranks(o_b, B)
+    SB = seed_budget
 
-    # ---- markers: compact, sort, dedupe (one int64 key per marker) ----
-    _, (m_key,) = _compact(u_marker, marker_budget, (mcanon[u_src],),
-                           (I64_MAX,))
-    m_key = torch.sort(m_key).values
-    first = torch.ones_like(m_key, dtype=torch.bool)
-    first[1:] = m_key[1:] != m_key[:-1]
-    first &= m_key != I64_MAX
-    uniq = m_key[first][:marker_budget]
-    n_markers = uniq.numel()
-    mu = torch.full((marker_budget,), -1, dtype=torch.int64, device=dev)
-    mu[:n_markers] = uniq
-    mu_hi = torch.where(mu < 0, U32_SENTINEL, mu >> 32)
-    mu_lo = mu & 0xFFFFFFFF
+    def by_kmer(vals, fill):
+        return _scatter_rows(o_b, o_rank, vals[order], B, SB, fill)
+
+    def by_pos(vals, fill):
+        return _scatter_rows(s_b, s_rank, vals, B, SB, fill)
+
+    # the padding rows form one more k-mer run (the sentinel's), whose
+    # multiplicity JAX records on each of them
+    n_seeds = torch.bincount(s_b, minlength=B)
+    pad = torch.arange(SB, device=dev)[None, :] >= n_seeds[:, None]
+    pad_mult = (SB - n_seeds).to(torch.int32)[:, None]
+
+    def mult(table):
+        return torch.where(pad, pad_mult, table)
+
+    # ---- markers: the first marker_budget per row, sorted, deduped ----
+    m = torch.nonzero(u_marker).flatten()
+    m_b = u_b[m]
+    m = m[_row_ranks(m_b, B) < marker_budget]
+    m_key = torch.unique((u_b[m] << 42) | mcanon.reshape(-1)[u_src[m]])
+    mk_b = m_key >> 42
+    mk_rank = _row_ranks(mk_b, B)
+    marker = m_key & ((1 << 42) - 1)
 
     return dict(
-        n_seeds=n_seeds, kmers=kmers, positions=s_pos[order],
-        contig_ids=s_cid[order], strands=s_strand[order], own_mult=own_mult,
-        p_positions=s_pos, p_contig_ids=s_cid, p_own_mult=p_own,
-        n_markers=n_markers, markers_hi=mu_hi, markers_lo=mu_lo,
-        n_seeds_want=n_seeds_want, n_markers_want=n_markers_want,
+        n_seeds=n_seeds,
+        kmers=by_kmer(s_kmer, U32_SENTINEL),
+        positions=by_kmer(s_pos, I32_SENTINEL),
+        contig_ids=by_kmer(s_cid, I32_SENTINEL),
+        strands=by_kmer(s_strand, False),
+        own_mult=mult(by_kmer(own, 0)),
+        p_positions=by_pos(s_pos, I32_SENTINEL),
+        p_contig_ids=by_pos(s_cid, I32_SENTINEL),
+        p_own_mult=mult(by_pos(own, 0)),
+        n_markers=torch.bincount(mk_b, minlength=B),
+        markers_hi=_scatter_rows(mk_b, mk_rank, marker >> 32, B,
+                                 marker_budget, U32_SENTINEL),
+        markers_lo=_scatter_rows(mk_b, mk_rank, marker & 0xFFFFFFFF, B,
+                                 marker_budget, U32_SENTINEL),
+        n_seeds_want=seed_mask.sum(1),
+        n_markers_want=marker_mask.sum(1),
     )
+
+
+def sketch_kernel(packed_codes: torch.Tensor, contig_starts: torch.Tensor,
+                  n_contigs: int, valid_floor: torch.Tensor | None = None, *,
+                  k: int, marker_k: int, c: int, marker_c: int,
+                  seed_budget: int, marker_budget: int):
+    """All-positions FracMinHash scan + compaction for one genome: the
+    one-row case of :func:`sketch_kernel_batch` ([L//4] codes, [C+1]
+    starts and floors).  Returns a dict with the same keys, values and
+    (int64 for u32) types as the JAX ``sketch_kernel``; the four counts
+    are Python ints."""
+    out = sketch_kernel_batch(
+        packed_codes[None], contig_starts[None], [int(n_contigs)],
+        None if valid_floor is None else valid_floor[None], k=k,
+        marker_k=marker_k, c=c, marker_c=marker_c, seed_budget=seed_budget,
+        marker_budget=marker_budget)
+    res = {key: v[0] for key, v in out.items() if key not in _COUNTS}
+    counts = torch.stack([out[key][0] for key in _COUNTS]).tolist()
+    res.update(zip(_COUNTS, counts))
+    return res
 
 
 def round_up(n: int, m: int) -> int:
@@ -456,7 +539,7 @@ def _pack_call(pieces, slots: int, length_bucket: int, device):
         raw[off:off + len(b)] = np.frombuffer(b, dtype=np.uint8)
         starts[i], floors[i] = off, off + floor
         off += len(b)
-    return (torch.from_numpy(encode_pack_host(raw)).to(device),
+    return (encode_pack(torch.from_numpy(raw).to(device)),
             torch.from_numpy(starts).to(device),
             torch.from_numpy(floors).to(device))
 
@@ -546,41 +629,6 @@ def _sketch_genome_chunked(name: str, kept: List[bytes], params: SketchParams,
                                device=device))
 
 
-def _sketch_genome_single(name: str, kept: List[bytes], params: SketchParams,
-                          seed_budget: int | None, marker_budget: int | None,
-                          length_bucket: int,
-                          contig_lengths: torch.Tensor) -> DeviceSketch:
-    """One :func:`sketch_kernel` call over all contigs, concatenated."""
-    total = sum(len(c) for c in kept)
-    device = contig_lengths.device
-    packed, starts, _ = _pack_call([(c, 0) for c in kept],
-                                   contig_lengths.shape[0], length_bucket,
-                                   device)
-    sb = seed_budget or seed_budget_for(total, params.c)
-    mb = marker_budget or marker_budget_for(total, params.marker_c)
-    out = sketch_kernel(
-        packed, starts, len(kept), k=params.k, marker_k=params.marker_k,
-        c=params.c, marker_c=params.marker_c, seed_budget=sb,
-        marker_budget=mb)
-    _warn_sketch_overflow(name, out.pop("n_seeds_want"),
-                          out.pop("n_markers_want"), sb, mb)
-
-    def scalar(v, dtype=torch.int32):
-        return torch.tensor(v, dtype=dtype, device=device)
-
-    return DeviceSketch(
-        kmers=out["kmers"], positions=out["positions"],
-        contig_ids=out["contig_ids"], strands=out["strands"],
-        own_mult=out["own_mult"],
-        p_positions=out["p_positions"], p_contig_ids=out["p_contig_ids"],
-        p_own_mult=out["p_own_mult"],
-        markers_hi=out["markers_hi"], markers_lo=out["markers_lo"],
-        n_seeds=scalar(out["n_seeds"]), n_markers=scalar(out["n_markers"]),
-        contig_lengths=contig_lengths, n_contigs=scalar(len(kept)),
-        # u32 in the JAX package: saturates for genomes of 4.3 Gbp or more
-        total_len=scalar(min(total, U32_MAX), torch.int64))
-
-
 def sketch_genome_device(
     name: str,
     contigs: Sequence[bytes],
@@ -593,7 +641,8 @@ def sketch_genome_device(
     max_buffer: int = GIANT_SKETCH_BUFFER,
     device: torch.device | str = "cuda",
 ) -> HostSketch:
-    """Encode contigs, pad, run :func:`sketch_kernel` on ``device``.
+    """Encode contigs, pad, run :func:`sketch_kernel_batch` on ``device``
+    as a stack of one.
 
     Contigs shorter than MIN_LENGTH_CONTIG are skipped entirely.
     ``max_contigs`` defaults to a power-of-two bucket sized from the input.
@@ -613,19 +662,134 @@ def sketch_genome_device(
         raise ValueError(f"genome {name!r} has {len(kept)} contigs, more "
                          f"than the max_contigs={max_contigs} budget")
     lengths = [len(c) for c in kept]
-    total = sum(lengths)
     device = torch.device(device)
-    clens = np.zeros(max_contigs, dtype=np.int32)
-    clens[:len(lengths)] = lengths
-    clens = torch.from_numpy(clens).to(device)
-    if total > max_buffer:
+    if sum(lengths) > max_buffer:
+        clens = np.zeros(max_contigs, dtype=np.int32)
+        clens[:len(lengths)] = lengths
         dev = _sketch_genome_chunked(name, kept, params, seed_budget,
                                      marker_budget, length_bucket,
-                                     max_buffer, clens)
+                                     max_buffer,
+                                     torch.from_numpy(clens).to(device))
     else:
-        dev = _sketch_genome_single(name, kept, params, seed_budget,
-                                    marker_budget, length_bucket, clens)
+        dev = _sketch_stack([(name, kept)], params, seed_budget,
+                            marker_budget, length_bucket, max_contigs,
+                            device)[0]
     if not seed:
         dev = _blank_seed_table(dev)
     return HostSketch(name=name, contig_names=contig_names, device=dev,
                       lengths=lengths)
+
+
+def _sketch_stack(group, params: SketchParams, seed_budget: int | None,
+                  marker_budget: int | None, length_bucket: int,
+                  max_contigs: int | None, device) -> List[DeviceSketch]:
+    """One stack of ``(name, kept contigs)`` genomes through
+    :func:`sketch_kernel_batch`, with the budgets of its largest member
+    (the JAX package's vmapped stack).  Rows are sketched in passes of at
+    most ``GIANT_SKETCH_BUFFER`` bases, which bounds memory and leaves
+    every row's result as it is."""
+    B = len(group)
+    totals = [sum(len(c) for c in kept) for _, kept in group]
+    max_total = max(totals)
+    L = max(round_up(max(max_total, 1), length_bucket), length_bucket)
+    sb = seed_budget or seed_budget_for(max_total, params.c)
+    mb = marker_budget or marker_budget_for(max_total, params.marker_c)
+    mc = max_contigs if max_contigs is not None else \
+        contig_budget_for(max(len(kept) for _, kept in group))
+    if mc > MAX_CONTIGS_HARD:
+        raise ValueError(f"max_contigs={mc} exceeds the engine's "
+                         f"{MAX_CONTIGS_HARD} hard limit")
+    raw = np.zeros((B, L), dtype=np.uint8)
+    starts = np.zeros((B, mc + 1), dtype=np.int32)
+    clens = np.zeros((B, mc), dtype=np.int32)
+    for b, (gname, kept) in enumerate(group):
+        if len(kept) > mc:
+            raise ValueError(f"genome {gname!r} has {len(kept)} contigs, "
+                             f"more than the max_contigs={mc} budget")
+        off = 0
+        for i, contig in enumerate(kept):
+            raw[b, off:off + len(contig)] = np.frombuffer(contig, np.uint8)
+            starts[b, i] = off
+            clens[b, i] = len(contig)
+            off += len(contig)
+        starts[b, len(kept):] = off
+    packed = encode_pack(torch.from_numpy(raw).to(device))
+    starts = torch.from_numpy(starts).to(device)
+    clens = torch.from_numpy(clens).to(device)
+    del raw
+
+    rows = max(1, GIANT_SKETCH_BUFFER // L)
+    parts = [sketch_kernel_batch(
+        packed[lo:lo + rows], starts[lo:lo + rows],
+        [len(kept) for _, kept in group[lo:lo + rows]], k=params.k,
+        marker_k=params.marker_k, c=params.c, marker_c=params.marker_c,
+        seed_budget=sb, marker_budget=mb) for lo in range(0, B, rows)]
+    res = {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
+    counts = torch.stack([res.pop(key) for key in _COUNTS], 1).to(torch.int32)
+    want = counts[:, 2:].tolist()
+    for (gname, _), (ws, wm) in zip(group, want):
+        _warn_sketch_overflow(gname, ws, wm, sb, mb)
+    scalars = torch.tensor([[len(kept), min(t, U32_MAX)]
+                            for (_, kept), t in zip(group, totals)],
+                           dtype=torch.int64, device=device)
+    return [DeviceSketch(
+        **{key: v[b] for key, v in res.items()},
+        n_seeds=counts[b, 0], n_markers=counts[b, 1],
+        contig_lengths=clens[b], n_contigs=scalars[b, 0].to(torch.int32),
+        total_len=scalars[b, 1]) for b in range(B)]
+
+
+def sketch_genomes_device(
+    named_contigs: Sequence[tuple],
+    params: SketchParams,
+    seed_budget: int | None = None,
+    marker_budget: int | None = None,
+    length_bucket: int = 1 << 20,
+    max_contigs: int | None = None,
+    device_batch: int = 8,
+    seed: bool = True,
+    max_buffer: int = GIANT_SKETCH_BUFFER,
+    device: torch.device | str = "cuda",
+) -> List[HostSketch]:
+    """Sketch MANY genomes, one batched kernel pass per stack.
+
+    ``named_contigs`` is a list of (name, [contig bytes...]).  Genomes are
+    grouped into stacks of up to ``device_batch`` BY SIZE (ascending,
+    ties in input order), so a stack's members share a padded length and
+    budgets sized from its largest member; input order is restored on
+    return.  Genomes above ``max_buffer`` take the chunked single-genome
+    path.  Every sketch equals the JAX package's ``sketch_genomes_device``
+    field for field, padded shapes included: a stack member's budgets (and
+    what an overflowing budget clips) follow the stack's largest genome,
+    so they can differ from a lone :func:`sketch_genome_device` call's.
+    """
+    device = torch.device(device)
+    items = []
+    for name, contigs in named_contigs:
+        kept = [c for c in contigs if len(c) >= MIN_LENGTH_CONTIG]
+        names = [f"{name}_{i}" for i, c in enumerate(contigs)
+                 if len(c) >= MIN_LENGTH_CONTIG]
+        items.append((name, kept, names, sum(len(c) for c in kept)))
+
+    by_slot = {}
+    for j, (name, kept, _, total) in enumerate(items):
+        if total > max_buffer:
+            clens = np.zeros(contig_budget_for(len(kept)), dtype=np.int32)
+            clens[:len(kept)] = [len(c) for c in kept]
+            by_slot[j] = _sketch_genome_chunked(
+                name, kept, params, seed_budget, marker_budget,
+                length_bucket, max_buffer, torch.from_numpy(clens).to(device))
+    small = sorted((j for j, it in enumerate(items) if it[3] <= max_buffer),
+                   key=lambda j: items[j][3])
+    for lo in range(0, len(small), device_batch):
+        slots = small[lo:lo + device_batch]
+        sketches = _sketch_stack([items[j][:2] for j in slots], params,
+                                 seed_budget, marker_budget, length_bucket,
+                                 max_contigs, device)
+        by_slot.update(zip(slots, sketches))
+    out = []
+    for j, (name, kept, names, _) in enumerate(items):
+        dev = by_slot[j] if seed else _blank_seed_table(by_slot[j])
+        out.append(HostSketch(name=name, contig_names=names, device=dev,
+                              lengths=[len(c) for c in kept]))
+    return out

@@ -165,7 +165,7 @@ def test_empty_database_and_api_surface():
 
 
 @pytest.mark.parametrize("call", [
-    "path", "open", "load", "save", "sketch_many", "est_ci", "k"])
+    "path", "open", "load", "save", "est_ci", "k"])
 def test_not_ported_paths_raise(call, tmp_path):
     db = pyskani_tpu_torch.Database(device="cpu")
     db.sketch("a", random_genome(np.random.default_rng(3), 20_000))
@@ -174,12 +174,31 @@ def test_not_ported_paths_raise(call, tmp_path):
         "open": lambda: pyskani_tpu_torch.Database.open(tmp_path),
         "load": lambda: pyskani_tpu_torch.Database.load(tmp_path),
         "save": lambda: db.save(tmp_path),
-        "sketch_many": lambda: db.sketch_many([("b", [b"ACGT" * 100])]),
         "est_ci": lambda: db.query("q", b"ACGT" * 100, est_ci=True),
         "k": lambda: pyskani_tpu_torch.Database(k=16, device="cpu"),
     }
     with pytest.raises(NotImplementedError, match="not ported|to port"):
         calls[call]()
+
+
+@pytest.mark.parametrize("qi", [0, 1])
+def test_sketch_many_matches_jax_and_per_genome(genomes, dbs, qi):
+    """A store built by ``sketch_many`` (batched passes) gives the JAX
+    package's ``sketch_many`` store's hits, and the hits of the port's
+    store built genome by genome."""
+    refs, queries = genomes
+    _, per_genome = dbs
+    jdb = pyskani_tpu.Database()
+    jdb.sketch_many(refs)
+    port = pyskani_tpu_torch.Database(device="cpu")
+    port.sketch_many(iter(refs))
+    assert [m.name for m in port._markers] == [n for n, _ in refs]
+    name, contigs = queries[qi]
+    got = port.query(name, *contigs, learned_ani=False)
+    assert len(got) >= 1
+    _assert_same_hits(got, jdb.query(name, *contigs, learned_ani=False))
+    _assert_same_hits(got, per_genome.query(name, *contigs,
+                                            learned_ani=False))
 
 
 def _small_buffer(fn, max_buffer):

@@ -93,6 +93,22 @@ def test_sketch_genome_device_bit_equal(seed):
         np.testing.assert_array_equal(got_np[f], w, err_msg=f)
 
 
+def test_encode_pack_matches_jax_host_encoding():
+    """Every byte value, in every one of the four packed slots, and a
+    random stream: the device encoding equals JAX ``encode_pack_host``."""
+    every = np.repeat(np.arange(256, dtype=np.uint8), 4)
+    shifted = np.roll(every, 1)
+    rand = np.random.default_rng(0).integers(0, 256, 4096, dtype=np.uint8)
+    for raw in (every, shifted, rand):
+        got = tsk.encode_pack(torch.from_numpy(raw))
+        np.testing.assert_array_equal(got.numpy(), jsk.encode_pack_host(raw))
+    stack = np.stack([rand, rand[::-1]])
+    got = tsk.encode_pack(torch.from_numpy(stack.copy()))
+    assert got.shape == (2, 1024) and got.dtype == torch.uint8
+    np.testing.assert_array_equal(got[1].numpy(),
+                                  jsk.encode_pack_host(rand[::-1].copy()))
+
+
 def test_hash_matches_numpy_u64():
     rng = np.random.default_rng(5)
     keys = rng.integers(0, 2**63, 4096, dtype=np.uint64) * np.uint64(2) + \
@@ -190,3 +206,69 @@ def test_valid_floor_masks_window_ends():
                                           err_msg=key)
         n = int(got["n_seeds"])
         assert (got["p_positions"][:n] >= extra).all()
+
+
+def _mixed_genomes():
+    """Genomes of mixed sizes (stacks of two pair them by size: d+b, a+f,
+    e+c), one with a contig under MIN_LENGTH_CONTIG, one above a 150 kb
+    call buffer."""
+    rng = np.random.default_rng(8)
+    return [("a", [random_genome(rng, 30_000)]),
+            ("b", [random_genome(rng, 5_000), b"AC" * 20,
+                   random_genome(rng, 9_000)]),
+            ("giant", [random_genome(rng, 110_000),
+                       random_genome(rng, 60_000)]),
+            ("c", [random_genome(rng, 140_000)]),
+            ("d", [random_genome(rng, 12_000)]),
+            ("e", [random_genome(rng, 90_000), random_genome(rng, 300)]),
+            ("f", [random_genome(rng, 60_000)])]
+
+
+@pytest.mark.parametrize("seed,one_row_passes", [
+    (True, False), (False, False), (True, True)])
+def test_sketch_genomes_device_matches_jax(seed, one_row_passes,
+                                           monkeypatch):
+    """Batched sketching (stacks of 2 grouped by size, the giant through
+    chunked calls) equals the JAX package's field for field, padded
+    shapes included, in input order; also when the per-pass base budget
+    splits every stack into one-row passes."""
+    if one_row_passes:
+        monkeypatch.setattr(tsk, "GIANT_SKETCH_BUFFER", 1 << 16)
+    named = _mixed_genomes()
+    kw = dict(length_bucket=1 << 16, device_batch=2, seed=seed,
+              max_buffer=150_000)
+    want = jsk.sketch_genomes_device(named, P, **kw)
+    got = tsk.sketch_genomes_device(named, P, device="cpu", **kw)
+    assert [g.name for g in got] == [n for n, _ in named]
+    for w, g in zip(want, got):
+        assert (g.contig_names, g.lengths) == (w.contig_names, w.lengths)
+        got_np = convert.sketch_to_numpy(g)
+        for f, a in jax.device_get(vars(w.device)).items():
+            a = np.asarray(a)
+            assert got_np[f].dtype == a.dtype, f
+            assert got_np[f].shape == a.shape, (g.name, f)
+            np.testing.assert_array_equal(got_np[f], a, err_msg=f)
+    # a stack member takes its stack's budgets: "e" (90 kb) is padded to
+    # those of "c" (140 kb), above what it would take alone
+    alone = tsk.sketch_genome_device("e", named[5][1], P, device="cpu")
+    assert got[5].device.seed_budget > alone.device.seed_budget
+
+
+def test_sketch_kernel_batch_rows_equal_single():
+    """Each row of one batched pass equals the one-genome kernel on that
+    genome with the same budgets, window-end floors included."""
+    genomes = [_genome("multi"), _genome("odd_bases"),
+               [random_genome(np.random.default_rng(6), 2_000)]]
+    inputs = [_kernel_inputs(c) for c in genomes]
+    packed = torch.from_numpy(np.stack([p for p, _ in inputs]))
+    starts = torch.from_numpy(np.stack([s for _, s in inputs]))
+    floors = starts + torch.tensor([0, 300, 0, 0, 0, 0, 0, 0, 0],
+                                   dtype=torch.int32)
+    ncon = [len(c) for c in genomes]
+    kw = dict(k=15, marker_k=21, c=P.c, marker_c=P.marker_c,
+              seed_budget=512, marker_budget=64)
+    batch = tsk.sketch_kernel_batch(packed, starts, ncon, floors, **kw)
+    for b in range(len(genomes)):
+        one = tsk.sketch_kernel(packed[b], starts[b], ncon[b], floors[b], **kw)
+        for key, v in one.items():
+            assert torch.equal(batch[key][b], torch.as_tensor(v)), (b, key)

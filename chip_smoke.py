@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path on one GPU and check it.
 
     python3 chip_smoke.py [--seed 0] [--refs 512] [--queries 8] [--out FILE]
-                          [--profile]
+                          [--profile] [--overlap]
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -38,7 +38,9 @@ Phases (any failure exits non-zero and prints no result line):
              store: every reference takes ``chain_pairs``, and the hits
              must equal the control query's (identity and reference
              fraction within 2e-6, query fraction scaled by the length
-             ratio within 1e-5 relative);
+             ratio within 1e-5 relative); the same query again with
+             ``est_ci`` (the largest resample tables, M = 262144): other
+             outputs unchanged, wall time and peak memory;
 7. triangle — all-vs-all.  (a) 64 genomes of 2.3 Mbp, ~1% substitutions
              from one root: ``Database.sketch_many`` must equal a
              per-genome ``sketch`` loop bit for bit (both rates printed);
@@ -54,8 +56,27 @@ Phases (any failure exits non-zero and prints no result line):
              alone, and one complete-draft pair the CPU port's (1e-6).
              (c) ``cli.main(["triangle", ...])`` on 4 FASTA files: its
              rows must equal the engine's;
-8. kernels — every DP grid the search, fallback, giant and triangle
-             phases fed the kernel, random tie-heavy grids and edge grids
+8. disk     — on-disk stores and the bootstrap interval.  (a) the search
+             store saved in both formats to a temporary folder (bytes
+             and write rate), opened (each query streams its shortlist
+             from disk) and loaded: every query's hits equal the memory
+             store's in names, order and within 1e-6; queries/s and peak
+             memory of memory, open and load.  (b) a consolidated store
+             of 2048 entries (each search sketch under 4 names): 4
+             queries, each shortlist of ~64 streamed in 4 chunks of 16;
+             with ``--overlap``, those queries also in turns with a
+             double-buffered stream (a worker thread loads the next
+             chunk), 4 times each, hits equal.  (c) est_ci on
+             the memory store, a fallback query (``chain_block`` and
+             ``chain_pairs``) and the family triangle (``chain_triangle``
+             and the cross tile): every other output unchanged, bounds
+             equal to the CPU port's within 1e-6, the resample index
+             tables bit-equal card vs CPU, and the wall-time overhead.
+             (d) ``cli.main(["sketch", ...])`` on 4 FASTA files, then
+             ``search --ci`` with and without ``--preload``: rows equal
+             the library's.  The folder is removed at the end;
+9. kernels — every DP grid the search, fallback, giant, triangle and
+             disk phases fed the kernel, random tie-heavy grids and edge grids
              (PF = 100, bands 0/1/25/32, anchors resuming after 40 invalid
              columns, empty rows, a tie across two 32-column chunks,
              contig-local positions in [2^30, 2^31) with reverse strands
@@ -71,9 +92,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 The chain-DP kernel's launch count is reset just before the main-path
 calls of each phase (the search's queries, the fallback's queries, the
-giant query, each of the three triangles) and read just after; each must
-launch it, the per-pair path for every fallback query, and the family
-triangle exactly 3 times.
+giant query, each of the three triangles, each timed run of the disk
+phase) and read just after; each must launch it, the per-pair path for
+every fallback query, and the family triangle exactly 3 times.
 
 The last three lines are the card line, one ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
@@ -117,6 +138,12 @@ GIANT = dict(genomes=((160_000_000, 80_000_000, 60_000_000),
 # substitutions per genome), 64 genomes so the triangle has two groups of
 # 32 and one 32 x 32 cross tile
 TRIANGLE = dict(genomes=64, length=2_300_000)
+# disk phase: the large consolidated store holds each search sketch under
+# `copies` names, so a query's shortlist (~16 family members) becomes ~64
+# references, streamed in chunks of 16; the first `queries` of the search's
+# queries run on it (decoding 64 sketches per query is the phase's largest
+# cost)
+DISK = dict(copies=4, queries=4)
 FLOAT_KEYS = ("ani_mean", "ani_robust", "ani_median", "af_query", "af_ref")
 INT_KEYS = ("n_anchors", "n_fragments")
 
@@ -324,7 +351,7 @@ def phase_search(result, torch, dev, args, rec):
         screen_passed=passed, screened_out=screened_out,
         dp_launches=launches, dp_shapes=[list(s) for s in shapes],
         cpu_check_max_diff=worst)
-    return launches
+    return launches, db, queries
 
 
 def _profile(torch, fn):
@@ -374,13 +401,15 @@ class Recorder:
 
     It wraps ``chain_dp`` as ``ops/chain.py`` calls it (a clone of each
     CUDA grid while ``keep`` is set) and ``chain_block`` / ``chain_pairs``
-    / ``chain_triangle`` as ``engine/batch.py`` calls them (the wrapper's
-    own launch count before and after each call)."""
+    / ``chain_triangle`` as ``engine/batch.py`` and ``engine/stream.py``
+    call them (the wrapper's own launch count before and after each
+    call)."""
 
     PATHS = ("chain_block", "chain_pairs", "chain_triangle")
 
     def __init__(self):
         from pyskani_tpu_torch.engine import batch as batch_mod
+        from pyskani_tpu_torch.engine import stream as stream_mod
         from pyskani_tpu_torch.ops import chain as chain_mod
         from pyskani_tpu_torch.ops import chain_dp as dp_mod
         self.grids = []          # (phase, path, (qpos, rpos, meta))
@@ -389,10 +418,12 @@ class Recorder:
         self.keep = True
         self._path = [None]
         self._mods = (batch_mod, chain_mod, dp_mod)
+        self._wrapped = [(batch_mod, n) for n in self.PATHS] + \
+            [(stream_mod, "chain_block")]
         self._real = {}
 
     def __enter__(self):
-        batch_mod, chain_mod, dp_mod = self._mods
+        _, chain_mod, dp_mod = self._mods
         real_dp = self._real["chain_dp"] = chain_mod.chain_dp
 
         def record_dp(q, r, m, cfg):
@@ -402,9 +433,9 @@ class Recorder:
             return real_dp(q, r, m, cfg)
 
         chain_mod.chain_dp = record_dp
-        for name in self.PATHS:
-            fn = self._real[name] = getattr(batch_mod, name)
-            setattr(batch_mod, name, self._counted(name, fn, dp_mod))
+        for mod, name in self._wrapped:
+            fn = self._real[(mod, name)] = getattr(mod, name)
+            setattr(mod, name, self._counted(name, fn, dp_mod))
         return self
 
     def _counted(self, name, fn, dp_mod):
@@ -421,10 +452,10 @@ class Recorder:
         return call
 
     def __exit__(self, *exc):
-        batch_mod, chain_mod, _ = self._mods
+        _, chain_mod, _ = self._mods
         chain_mod.chain_dp = self._real["chain_dp"]
-        for name in self.PATHS:
-            setattr(batch_mod, name, self._real[name])
+        for mod, name in self._wrapped:
+            setattr(mod, name, self._real[(mod, name)])
         return False
 
     def grids_of(self, phase, path=None):
@@ -726,12 +757,28 @@ def phase_giant(result, torch, dev, args, rec, db, queries, fb_hits):
         per_path = {p: rec.launches_of("giant", p) for p in Recorder.PATHS}
         rec.keep = True
         kept = db.query(qname + "_giant", b"A" * 600, learned_ani=False)
+        # once with the bootstrap interval: M = 2 NF resample columns per
+        # pair, the largest index tables any path draws; its grids repeat
+        # the query's, so none is kept
+        rec.keep = False
+        rec.phase = "giant_est_ci"
+        dp_mod.chain_dp.launches = 0
+        ci_hits, ci_wall_s, ci_peak_gib = _timed(torch, lambda: db.query(
+            qname + "_giant", b"A" * 600, learned_ani=False, est_ci=True))
+        ci_launches = dp_mod.chain_dp.launches
     finally:
         dbmod.sketch_genome_device = real_sketch
         rec.phase = None
         rec.keep = True
     if [repr(h) for h in kept] != [repr(h) for h in hits]:
         raise AssertionError(f"giant query repeated: {kept} != {hits}")
+    if ci_launches < 1 or [(h.reference_name, h.identity, h.query_fraction,
+                            h.reference_fraction) for h in ci_hits] != \
+            [(h.reference_name, h.identity, h.query_fraction,
+              h.reference_fraction) for h in hits]:
+        raise AssertionError(f"giant query with est_ci ({ci_launches} "
+                             f"launches): {ci_hits} != {hits}")
+    _check_ci(ci_hits, "giant est_ci")
     if per_path["chain_block"] != 0 or per_path["chain_pairs"] < 1 or \
             per_path["chain_pairs"] != launches:
         raise AssertionError(f"giant query launches {launches}, per path "
@@ -757,7 +804,8 @@ def phase_giant(result, torch, dev, args, rec, db, queries, fb_hits):
         f"({len(giant.lengths)} contigs) through Database.query: "
         f"{len(hits)} hits equal the control's ({worst}); {wall_s:.2f} s, "
         f"peak +{peak_gib:.2f} GiB; chain_pairs launches {launches}, grids "
-        f"{shapes}")
+        f"{shapes}; with est_ci {ci_wall_s:.2f} s, peak +{ci_peak_gib:.2f} "
+        f"GiB, other outputs unchanged, launches {ci_launches}")
     result["giant"] = dict(
         sketch=dict(contigs=list(sizes), buffer=buf, chunked_s=chunk_s,
                     chunked_peak_gib=chunk_gib, single_s=single_s,
@@ -765,8 +813,11 @@ def phase_giant(result, torch, dev, args, rec, db, queries, fb_hits):
         query=dict(total_bp=giant.total_len, contigs=len(giant.lengths),
                    wall_s=wall_s, peak_gib=peak_gib, hits=len(hits),
                    max_diff=worst, dp_launches=launches,
-                   grid_shapes=[list(x) for x in shapes]))
-    return launches
+                   grid_shapes=[list(x) for x in shapes]),
+        query_est_ci=dict(wall_s=ci_wall_s, peak_gib=ci_peak_gib,
+                          dp_launches=ci_launches,
+                          bounds=[[h.ci_low, h.ci_high] for h in ci_hits]))
+    return launches + ci_launches
 
 
 def _family_genomes(rng, n: int, length: int):
@@ -995,7 +1046,489 @@ def phase_triangle(result, torch, dev, args, rec, db):
                    grid_shapes=mshapes, control_max_diff=ctrl_diff,
                    cpu_max_diff=mixed_cpu_diff),
         cli=dict(rows=len(rows) - 1, dp_launches=cli_launches))
-    return fam_launches + mixed_launches + cli_launches
+    family = dict(names=names, genomes=genomes, sketches=sketches, out=out)
+    return fam_launches + mixed_launches + cli_launches, family
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _same_hits(got, want, label) -> float:
+    """Max |diff| of two hit lists that must name the same references in
+    the same order."""
+    g = [h.reference_name for h in got]
+    w = [h.reference_name for h in want]
+    if g != w:
+        raise AssertionError(f"{label}: hits {g} != {w}")
+    return max([0.0] + [_hit_diff(a, b) for a, b in zip(got, want)])
+
+
+def _ci_diff(got, want) -> float:
+    return max([0.0] + [max(abs(a.ci_low - b.ci_low),
+                            abs(a.ci_high - b.ci_high))
+                        for a, b in zip(got, want)])
+
+
+def _check_ci(hits, label):
+    for h in hits:
+        if not (np.isfinite(h.ci_low) and np.isfinite(h.ci_high) and
+                0.0 <= h.ci_low <= h.ci_high + 1e-6 and h.ci_high <= 1.0):
+            raise AssertionError(f"{label}: implausible interval {h} "
+                                 f"[{h.ci_low}, {h.ci_high}]")
+
+
+def _stream_cost(torch, store, names, dev) -> dict:
+    """The host's part of streaming ``names`` from a disk ``store``, each
+    step timed alone: decoding the sketches (npz to host tensors),
+    stacking them into pinned buffers, and the copy to the card (ms)."""
+    from pyskani_tpu_torch.engine.batch import stack_sketches_host
+    from pyskani_tpu_torch.ops.sketch import FIELDS
+    t0 = time.perf_counter()
+    hosts = [store._storage.load(n, device="cpu") for n in names]
+    t1 = time.perf_counter()
+    stack = stack_sketches_host(hosts, pin=True)
+    t2 = time.perf_counter()
+    stack.map(lambda t: t.to(dev, non_blocking=True))
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    nbytes = sum(getattr(stack, f).numel() * getattr(stack, f).element_size()
+                 for f in FIELDS)
+    return dict(sketches=len(names), chunk_mb=nbytes / 1e6,
+                decode_ms=(t1 - t0) * 1e3, stack_ms=(t2 - t1) * 1e3,
+                copy_ms=(t3 - t2) * 1e3)
+
+
+def _stream_threaded(load, names, query, *, cfg, budgets, seed_budget,
+                     marker_budget, contig_budget=None, chunk=16):
+    """``engine/stream.py::stream_one_vs_many`` with double buffering: a
+    worker thread loads chunk i+1, stacks it into pinned buffers and
+    copies it on a side CUDA stream while chunk i chains, and the compute
+    stream waits on the copy's event.  The design the in-line stream is
+    measured against (``--overlap``)."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pyskani_tpu_torch.engine import stream as stream_mod
+    from pyskani_tpu_torch.engine.batch import stack_sketches_host
+    from pyskani_tpu_torch.ops.sketch import FIELDS
+    if not names:
+        return {}
+    dev = query.device
+    q1 = query.map(lambda x: x[None])
+    side = torch.cuda.Stream(device=dev)
+
+    def ship(chunk_names):
+        hosts = [load(n) for n in chunk_names]
+        hosts += [hosts[0]] * (chunk - len(hosts))
+        stack = stack_sketches_host(hosts, seed_budget, marker_budget,
+                                    contig_budget, pin=True)
+        with torch.cuda.stream(side):
+            out = stack.map(lambda t: t.to(dev, non_blocking=True))
+            done = torch.cuda.Event()
+            done.record(side)
+        return out, done
+
+    groups = [names[i:i + chunk] for i in range(0, len(names), chunk)]
+    outs = []
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        nxt = pool.submit(ship, groups[0])
+        for gi in range(len(groups)):
+            cur, done = nxt.result()
+            if gi + 1 < len(groups):
+                nxt = pool.submit(ship, groups[gi + 1])
+            compute = torch.cuda.current_stream(dev)
+            compute.wait_event(done)
+            # allocated on the side stream: kept from reuse until the
+            # compute stream is done with it
+            for f in FIELDS:
+                getattr(cur, f).record_stream(compute)
+            out = stream_mod.chain_block(cur, q1, cfg=cfg, budgets=budgets)
+            outs.append({k: v[:, 0] for k, v in out.items()})
+    P = len(names)
+    return {k: torch.cat([o[k] for o in outs])[:P].cpu().numpy()
+            for k in outs[0]}
+
+
+def _overlap_ab(torch, rec, store, queries, pairs=4) -> dict:
+    """Wall of the streamed ``queries`` on ``store`` with the port's
+    in-line stream and with ``_stream_threaded``, alternated ``pairs``
+    times; the hits of the two must be equal."""
+    from pyskani_tpu_torch import database as dbmod
+    real = dbmod.stream_one_vs_many
+    walls = {"inline": [], "thread": []}
+    hits = {}
+    rec.phase, rec.keep = "disk_overlap", False
+    try:
+        for _ in range(pairs):
+            for mode in walls:
+                if mode == "thread":
+                    dbmod.stream_one_vs_many = _stream_threaded
+                try:
+                    hits[mode], wall, _ = _timed(torch, lambda: [
+                        store.query(n, q, learned_ani=False)
+                        for n, q in queries])
+                    walls[mode].append(wall)
+                finally:
+                    dbmod.stream_one_vs_many = real
+    finally:
+        rec.phase, rec.keep = None, True
+    worst = max(_same_hits(a, b, "overlap A/B")
+                for a, b in zip(hits["thread"], hits["inline"]))
+    if worst != 0.0:
+        raise AssertionError(f"threaded stream differs by {worst}")
+    out = dict(queries=len(queries), thread_s=walls["thread"],
+               inline_s=walls["inline"],
+               gain=float(np.median(walls["inline"]) /
+                          np.median(walls["thread"]) - 1))
+    log(f"[disk] streamed queries x {len(queries)}, in line vs a worker "
+        f"thread loading the next chunk, alternated: in line "
+        f"{walls['inline']} s, thread {walls['thread']} s; hits equal; "
+        f"medians, in line / thread - 1 = {out['gain']:+.3f}")
+    return out
+
+
+def phase_disk(result, torch, dev, rec, db, queries, fb_db, fb_queries,
+               fb_hits, family, overlap=False):
+    """On-disk stores and the bootstrap interval: (a) the search store
+    saved in both formats, opened (streamed) and loaded; (b) a
+    consolidated store of DISK["copies"] x 512 entries streamed in several
+    chunks per query; (c) est_ci on the memory store, the fallback store
+    and the family triangle against the CPU port; (d) the CLI's sketch
+    and search --ci.  Returns the chain-DP launches of its main-path
+    runs."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import pyskani_tpu_torch
+    from pyskani_tpu_torch import cli
+    from pyskani_tpu_torch.engine import batch as eb
+    from pyskani_tpu_torch.ops import chain_dp as dp_mod
+    from pyskani_tpu_torch.ops import prng
+    from pyskani_tpu_torch.ops.chain import ChainConfig
+
+    Database = pyskani_tpu_torch.Database
+    launches, chunks, rep = {}, {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_disk_")
+
+    def run_queries(store, label, keep=False, n=len(queries), **kw):
+        """The first ``n`` queries on ``store``: one untimed query (its DP
+        grids kept for the kernels phase with ``keep``; the paths whose
+        grids repeat another label's keep none), then all ``n`` timed with
+        none kept.  Returns the hits; counts DP launches and chain_block
+        calls (streamed chunks) of the timed run."""
+        qs = queries[:n]
+        n = len(qs)
+        phase = rec.phase = f"disk_{label}"
+        rec.keep = keep
+        try:
+            store.query(*queries[0], learned_ani=False, **kw)
+            rec.keep = False
+            before = rec.launches_of(phase, "chain_block")
+            dp_mod.chain_dp.launches = 0
+            hits, wall, peak = _timed(torch, lambda: [
+                store.query(name, q, learned_ani=False, **kw)
+                for name, q in qs])
+            launches[label] = dp_mod.chain_dp.launches
+            chunks[label] = rec.launches_of(phase, "chain_block") - before
+        finally:
+            rec.keep = True
+            rec.phase = None
+        rep[label] = dict(queries=n, queries_per_s=n / wall, wall_s=wall,
+                          peak_gib=peak, dp_launches=launches[label],
+                          chain_block_calls=chunks[label])
+        log(f"[disk] {label}: {n} queries in {wall:.3f} s = "
+            f"{n / wall:.2f} queries/s, peak +{peak:.3f} GiB; "
+            f"chain-DP launches {launches[label]}, chain_block calls "
+            f"{chunks[label]}")
+        return hits
+
+    try:
+        # ---- (a) memory, then saved in both formats, opened and loaded ----
+        mem_hits = run_queries(db, "memory")
+        for fmt in ("consolidated", "separated"):
+            path = os.path.join(tmp, fmt)
+            _, save_s, _ = _timed(torch, lambda: db.save(path, format=fmt))
+            nbytes = _dir_bytes(path)
+            opened = Database.open(path)
+            if opened.device.type != dev.type:
+                raise AssertionError(f"open() runs on {opened.device}")
+            hits = run_queries(opened, f"open_{fmt}",
+                               keep=fmt == "consolidated")
+            d_open = max(_same_hits(h, m, f"open {fmt}")
+                         for h, m in zip(hits, mem_hits))
+            cost = [_stream_cost(torch, opened, [h.reference_name
+                                                 for h in mem_hits[0]], dev)
+                    for _ in range(2)]
+            loaded, load_s, load_gib = _timed(torch,
+                                              lambda: Database.load(path))
+            hits = run_queries(loaded, f"load_{fmt}")
+            d_load = max(_same_hits(h, m, f"load {fmt}")
+                         for h, m in zip(hits, mem_hits))
+            del loaded, opened
+            if d_open > 1e-6 or d_load > 1e-6:
+                raise AssertionError(f"{fmt}: open/load hits differ from the "
+                                     f"memory store's by {d_open}/{d_load}")
+            rep[fmt] = dict(bytes=nbytes, save_s=save_s,
+                            write_mb_s=nbytes / 1e6 / save_s, load_s=load_s,
+                            load_peak_gib=load_gib, open_max_diff=d_open,
+                            load_max_diff=d_load, stream_cost=cost)
+            log(f"[disk] {fmt}: {nbytes / 1e6:.1f} MB written in "
+                f"{save_s:.2f} s ({nbytes / 1e6 / save_s:.1f} MB/s); load() "
+                f"{load_s:.2f} s, +{load_gib:.3f} GiB; open and load hits "
+                f"equal the memory store's (max |diff| {d_open:.3g} / "
+                f"{d_load:.3g}); one query's chunk of "
+                f"{cost[-1]['sketches']} sketches ({cost[-1]['chunk_mb']:.1f} "
+                f"MB), each step alone, two runs: decode "
+                f"{[round(c['decode_ms'], 2) for c in cost]} ms, pinned stack "
+                f"{[round(c['stack_ms'], 2) for c in cost]} ms, copy to the "
+                f"card {[round(c['copy_ms'], 2) for c in cost]} ms")
+
+        # ---- (b) a consolidated store of copies x 512 entries ----
+        path = os.path.join(tmp, "copies")
+        names = [m.name for m in db._markers]
+
+        def build():
+            with Database(path, format="consolidated") as big:
+                for c in range(DISK["copies"]):
+                    for n in names:
+                        big._register_sketch(dataclasses.replace(
+                            db._storage.load(n), name=f"{n}_c{c}"))
+
+        _, build_s, _ = _timed(torch, build)
+        hits = run_queries(Database.open(path), "open_copies", keep=True,
+                           n=DISK["queries"])
+        worst = 0.0
+        for h, m in zip(hits, mem_hits):
+            want = [f"{x.reference_name}_c{c}" for c in range(DISK["copies"])
+                    for x in m]
+            if [x.reference_name for x in h] != want:
+                raise AssertionError(f"copies store hits "
+                                     f"{[x.reference_name for x in h]}")
+            worst = max([worst] + [_hit_diff(x, m[i % len(m)])
+                                   for i, x in enumerate(h)])
+        per_query = chunks["open_copies"] / len(hits)
+        if worst > 1e-6 or per_query < 2:
+            raise AssertionError(f"copies store: max diff {worst}, "
+                                 f"{per_query} chunks per query")
+        rep["copies"] = dict(entries=len(names) * DISK["copies"],
+                             bytes=_dir_bytes(path), build_s=build_s,
+                             shortlist=len(hits[0]),
+                             chunks_per_query=per_query, max_diff=worst)
+        log(f"[disk] {len(names) * DISK['copies']}-entry consolidated store "
+            f"({_dir_bytes(path) / 1e6:.1f} MB, built in {build_s:.2f} s): "
+            f"{len(hits[0])} hits per query in {per_query:.1f} streamed "
+            f"chunks, equal to the memory store's (max |diff| {worst:.3g})")
+        if overlap:
+            rep["copies"]["overlap"] = _overlap_ab(
+                torch, rec, Database.open(path), queries[:DISK["queries"]])
+        shutil.rmtree(path)
+
+        # ---- (c) est_ci: memory store, fallback store, family triangle ----
+        ci_hits = run_queries(db, "est_ci_memory", est_ci=True)
+        exact = max(_same_hits(h, m, "est_ci memory")
+                    for h, m in zip(ci_hits, mem_hits))
+        for h in ci_hits:
+            _check_ci(h, "est_ci memory")
+        cpu = Database(device="cpu")
+        for h in ci_hits[0][:2]:
+            cpu._register_sketch(db._storage.load(h.reference_name))
+        cpu_hits = cpu.query(*queries[0], learned_ani=False, est_ci=True)
+        card = {h.reference_name: h for h in ci_hits[0]}
+        mem_cpu = max(max(_hit_diff(h, card[h.reference_name]),
+                          _ci_diff([h], [card[h.reference_name]]))
+                      for h in cpu_hits)
+
+        fq = fb_queries[0]
+        rec.phase = "disk_est_ci_fallback"
+        rec.keep = False
+        try:
+            dp_mod.chain_dp.launches = 0
+            fb_ci, _, fb_ci_gib = _timed(torch, lambda: fb_db.query(
+                *fq, learned_ani=False, est_ci=True))
+            launches["est_ci_fallback"] = dp_mod.chain_dp.launches
+        finally:
+            rec.keep = True
+            rec.phase = None
+        exact = max(exact, _same_hits(fb_ci, fb_hits[0], "est_ci fallback"))
+        _check_ci(fb_ci, "est_ci fallback")
+        pick = [next(h.reference_name for h in fb_ci
+                     if h.reference_name.startswith(p)) for p in "cd"]
+        cpu = Database(device="cpu")
+        for n in pick:
+            cpu._register_sketch(fb_db._storage.load(n))
+        card = {h.reference_name: h for h in fb_ci}
+        fb_cpu = max(max(_hit_diff(h, card[h.reference_name]),
+                         _ci_diff([h], [card[h.reference_name]]))
+                     for h in cpu.query(*fq, learned_ani=False, est_ci=True))
+
+        sketches, fam_out = family["sketches"], family["out"]
+        cfg_ci = ChainConfig(est_ci=True)
+        rec.phase = "disk_est_ci_triangle"
+        rec.keep = False
+        try:
+            dp_mod.chain_dp.launches = 0
+            (_, _, tri), _, tri_gib = _timed(
+                torch, lambda: eb.triangle(sketches, cfg_ci))
+            launches["est_ci_triangle"] = dp_mod.chain_dp.launches
+        finally:
+            rec.keep = True
+            rec.phase = None
+        for k, v in fam_out.items():
+            if not np.array_equal(tri[k], v):
+                raise AssertionError(f"triangle with est_ci: {k} differs")
+        lo, hi = tri["ani_ci_low"], tri["ani_ci_high"]
+        # the two quantiles interpolate in f32: where every resample mean
+        # is one value, the 5% bound may read one ulp above the 95% bound
+        bad = ~(np.isfinite(lo) & (0 <= lo) & (lo <= hi + 1e-6) & (hi <= 1))
+        if bad.any():
+            i = np.nonzero(bad)[0][:4]
+            raise AssertionError(
+                f"triangle with est_ci: {int(bad.sum())} implausible bounds, "
+                f"e.g. pairs {i.tolist()}: [{lo[i].tolist()}, "
+                f"{hi[i].tolist()}]")
+        # a 3-genome group and a 2 x 2 cross tile, card vs the CPU port
+        rec.phase = "disk_checks"
+        batch = eb.stack_sketches(sketches)
+        budgets = eb.default_budgets(sketches, batch, cfg_ci)
+        cpu_batch = batch.map(lambda x: x.cpu())
+        tri_cpu = 0.0
+        for run in (
+                lambda b, t: eb.chain_triangle(
+                    eb.take_sketch(b, t([0, 1, 2])), cfg=cfg_ci,
+                    budgets=budgets),
+                lambda b, t: eb.chain_block(
+                    eb.take_sketch(b, t([0, 1])), eb.take_sketch(
+                        b, t([32, 33])), cfg=cfg_ci, budgets=budgets)):
+            got = _cpu(run(batch, lambda i: torch.tensor(i, device=dev)))
+            want = _cpu(run(cpu_batch, torch.tensor))
+            tri_cpu = max(tri_cpu, _out_diff(
+                got, want, FLOAT_KEYS + ("ani_ci_low", "ani_ci_high")))
+        rec.phase = None
+        del batch, cpu_batch
+        # the resample index tables: card vs CPU, bit for bit
+        tables = 0
+        for M in sorted({2 * budgets.max_fragments, 512, 768}):
+            spans = torch.tensor(sorted({1, 2, 3, 97, M // 2, M - 1, M}),
+                                 dtype=torch.int64).view(-1, 1, 1)
+            on_card = prng.randint_from_bits(*prng.bootstrap_bits(
+                100, M, dev), spans.to(dev))
+            on_cpu = prng.randint_from_bits(*prng.bootstrap_bits(
+                100, M, "cpu"), spans)
+            if not torch.equal(on_card.cpu(), on_cpu):
+                raise AssertionError(f"bootstrap indices differ at M={M}")
+            tables += 1
+        if exact != 0.0 or max(mem_cpu, fb_cpu, tri_cpu) > 1e-6:
+            raise AssertionError(f"est_ci: other outputs moved by {exact}; vs "
+                                 f"the CPU port {mem_cpu}, {fb_cpu}, "
+                                 f"{tri_cpu}")
+        # the wall-time overhead: plain and est_ci calls alternated, three
+        # of each, so that neither side runs warmer than the other
+        runs = dict(
+            search=lambda ci: [db.query(n, q, learned_ani=False, est_ci=ci)
+                               for n, q in queries],
+            fallback=lambda ci: fb_db.query(*fq, learned_ani=False,
+                                            est_ci=ci),
+            triangle=lambda ci: eb.triangle(sketches,
+                                            cfg_ci if ci else ChainConfig()))
+        overhead = {}
+        rec.phase = "disk_est_ci_timing"
+        rec.keep = False
+        try:
+            for label, fn in runs.items():
+                walls = {False: [], True: []}
+                for _ in range(3):
+                    for ci in (False, True):
+                        walls[ci].append(_timed(torch, lambda: fn(ci))[1])
+                overhead[label] = dict(
+                    plain_s=walls[False], ci_s=walls[True],
+                    overhead=float(np.median(walls[True]) /
+                                   np.median(walls[False]) - 1))
+        finally:
+            rec.keep = True
+            rec.phase = None
+        rep["est_ci"] = dict(
+            overhead=overhead, fallback_peak_gib=fb_ci_gib,
+            triangle_peak_gib=tri_gib, cpu_max_diff=[mem_cpu, fb_cpu, tri_cpu],
+            index_tables=tables)
+        log(f"[disk] est_ci: other outputs unchanged; bounds vs the CPU port "
+            f"(memory, fallback, triangle group + cross tile) max |diff| "
+            f"{mem_cpu:.3g}, {fb_cpu:.3g}, {tri_cpu:.3g}; index tables "
+            f"bit-equal card vs CPU at {tables} widths; family triangle "
+            f"peak +{tri_gib:.2f} GiB; wall, plain vs est_ci alternated "
+            f"(medians of 3): " + ", ".join(
+                f"{k} {np.median(v['plain_s']):.4f} -> "
+                f"{np.median(v['ci_s']):.4f} s ({v['overhead']:+.3f})"
+                for k, v in overhead.items()))
+
+        # ---- (d) the CLI: sketch, then search --ci (open and preload) ----
+        paths = []
+        for n, g in zip(family["names"][:4], family["genomes"][:4]):
+            paths.append(os.path.join(tmp, f"{n}.fa"))
+            with open(paths[-1], "wb") as f:
+                f.write(b">" + n.encode() + b"\n" + g + b"\n")
+        store = os.path.join(tmp, "cli_db")
+        rec.phase = "disk_cli"
+        try:
+            dp_mod.chain_dp.launches = 0
+            if cli.main(["sketch", *paths, "-o", store, "--device",
+                         "cuda"]) != 0:
+                raise AssertionError("CLI sketch failed")
+            rows = {}
+            for preload in (False, True):
+                tsv = os.path.join(tmp, f"search_{preload}.tsv")
+                if cli.main(["search", "-d", store, *paths[:2], "--ci",
+                             "--device", "cuda", "-o", tsv] +
+                            ["--preload"] * preload) != 0:
+                    raise AssertionError("CLI search failed")
+                with open(tsv) as f:
+                    rows[preload] = f.read().splitlines()
+            launches["cli"] = dp_mod.chain_dp.launches
+        finally:
+            rec.phase = None
+        # the library's own rows: same grids as the CLI's, none kept
+        rec.phase, rec.keep = "disk_cli_checks", False
+        for preload, opener in ((False, Database.open),
+                                (True, Database.load)):
+            lib = opener(store)
+            want = ["Ref_file\tQuery_file\tANI\tAlign_fraction_ref\t"
+                    "Align_fraction_query\tANI_5_percentile\t"
+                    "ANI_95_percentile"]
+            for p, g in zip(paths[:2], family["genomes"][:2]):
+                hits = sorted(lib.query(os.path.basename(p), g, est_ci=True),
+                              key=lambda h: -h.identity)
+                want += [f"{h.reference_name}\t{h.query_name}\t"
+                         f"{100 * h.identity:.2f}\t"
+                         f"{100 * h.reference_fraction:.2f}\t"
+                         f"{100 * h.query_fraction:.2f}\t"
+                         f"{100 * h.ci_low:.2f}\t{100 * h.ci_high:.2f}"
+                         for h in hits
+                         if max(h.query_fraction,
+                                h.reference_fraction) * 100 >= 15.0]
+            if rows[preload] != want or len(want) != 1 + 2 * 4:
+                raise AssertionError(f"CLI search (preload {preload}) rows "
+                                     f"{rows[preload]} != {want}")
+        rec.phase, rec.keep = None, True
+        log(f"[disk] CLI sketch of 4 FASTA files, then search --ci with and "
+            f"without --preload: {len(rows[False]) - 1} rows each, equal to "
+            f"the library's; chain-DP launches {launches['cli']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    main_path = ("open_consolidated", "load_consolidated", "open_separated",
+                 "load_separated", "open_copies", "est_ci_memory",
+                 "est_ci_fallback", "est_ci_triangle", "cli")
+    for label in main_path:
+        if launches[label] < 1:
+            raise AssertionError(f"disk {label}: no chain-DP launch")
+    total = sum(launches[k] for k in main_path)
+    rep["dp_launches"] = launches
+    result["disk"] = rep
+    log(f"[disk] chain-DP launches on the disk phase's main paths: {total} "
+        f"{ {k: launches[k] for k in main_path} }")
+    return total
 
 
 def _tie_grid(rng, R, PF, torch, dev):
@@ -1316,6 +1849,9 @@ def main() -> int:
     ap.add_argument("--queries", type=int, default=8)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one query and one sketch")
+    ap.add_argument("--overlap", action="store_true",
+                    help="also time the streamed store's queries against "
+                         "a double-buffered stream")
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     args = ap.parse_args()
@@ -1345,18 +1881,24 @@ def main() -> int:
 
     with Recorder() as rec:
         rec.phase = "search"
-        search_launches = phase_search(result, torch, dev, args, rec)
+        search_launches, search_db, search_queries = phase_search(
+            result, torch, dev, args, rec)
         rec.phase = None
         db, queries, fb_hits, fb_launches = phase_fallback(
             result, torch, dev, args, rec)
         giant_launches = phase_giant(result, torch, dev, args, rec, db,
                                      queries, fb_hits)
-        tri_launches = phase_triangle(result, torch, dev, args, rec, db)
-    del db
-    launches = search_launches + fb_launches + giant_launches + tri_launches
+        tri_launches, family = phase_triangle(result, torch, dev, args, rec,
+                                              db)
+        disk_launches = phase_disk(result, torch, dev, rec, search_db,
+                                   search_queries, db, queries, fb_hits,
+                                   family, overlap=args.overlap)
+    del db, search_db, family
+    launches = search_launches + fb_launches + giant_launches + \
+        tri_launches + disk_launches
     log(f"[launches] chain-DP kernel on the main paths: search "
         f"{search_launches}, fallback {fb_launches}, giant {giant_launches}, "
-        f"triangle {tri_launches}")
+        f"triangle {tri_launches}, disk {disk_launches}")
     entry = phase_kernels(result, torch, dev, rec, launches)
     result["total_s"] = time.perf_counter() - t_start
     log(f"[done] {result['total_s']:.1f} s")

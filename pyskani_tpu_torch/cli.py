@@ -1,17 +1,20 @@
-"""Command-line interface of the PyTorch engine: skani's ``dist`` and
-``triangle`` modes.
+"""Command-line interface of the PyTorch engine: skani's four modes.
 
+  skani-tpu-torch sketch   -o DIR genome1.fa [genome2.fa ...]
   skani-tpu-torch dist     -q query.fa [...] -r ref.fa [...]
+  skani-tpu-torch search   -d DIR query.fa [...]
   skani-tpu-torch triangle genome1.fa genome2.fa [...]
 
 The arguments, the TSV and the ``--full-matrix`` / ``--distance`` forms
 are those of the JAX package's ``skani-tpu``.  Output is skani-style TSV:
   Ref_file  Query_file  ANI  Align_fraction_ref  Align_fraction_query
+with ``--ci`` adding ANI_5_percentile and ANI_95_percentile (the
+bootstrap interval).  ``sketch --format`` sets the store's format.
 
-Both run on ``--device`` (default ``cuda``; ``cpu`` runs the plain
-PyTorch versions).  Not ported yet, each exiting with code 2: ``sketch``
-and ``search`` (on-disk stores), ``--ci`` (bootstrap confidence
-intervals) and ``--mesh`` (several devices).
+Every command runs on ``--device`` (default ``cuda``; ``cpu`` runs the
+plain PyTorch versions).  Not ported yet, exiting with code 2 and naming
+their ROADMAP items: ``--mesh`` (several devices) and ``-k`` other than
+15.
 """
 
 from __future__ import annotations
@@ -23,9 +26,6 @@ from typing import List
 
 # what is not ported yet -> the ROADMAP.md item that queues it
 _NOT_PORTED = {
-    "sketch": "the `sketch` subcommand (on-disk stores, ROADMAP A.10)",
-    "search": "the `search` subcommand (on-disk stores, ROADMAP A.10)",
-    "ci": "--ci (bootstrap confidence intervals, ROADMAP A.9)",
     "mesh": "--mesh (several devices, ROADMAP A.12)",
 }
 
@@ -36,6 +36,12 @@ def _add_sketch_params(p):
     p.add_argument("-m", "--marker-compression", type=int, default=1000,
                    help="marker k-mer compression factor")
     p.add_argument("-k", type=int, default=15, help="k-mer size")
+
+
+def _add_device(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; cpu runs "
+                        "the plain PyTorch versions)")
 
 
 def _add_query_params(p):
@@ -52,15 +58,14 @@ def _add_query_params(p):
     p.add_argument("--min-af", type=float, default=15.0,
                    help="minimum aligned fraction (percent) to report")
     p.add_argument("--ci", action="store_true",
-                   help="confidence intervals (not ported yet)")
+                   help="report [5%%, 95%%] percentile-bootstrap ANI "
+                        "confidence intervals (extra output columns)")
     p.add_argument("-o", "--output-file", default=None,
                    help="write results to this file instead of stdout")
     p.add_argument("-n", "--max-results", type=int, default=1_000_000_000,
                    help="keep at most this many hits per query "
                         "(best ANI first)")
-    p.add_argument("--device", default="cuda",
-                   help="torch device to run on (default cuda; cpu runs "
-                        "the plain PyTorch versions)")
+    _add_device(p)
 
 
 def _learned(val):
@@ -73,14 +78,20 @@ def _screen_val(s):
     return s / 100.0 if s > 1.0 else s
 
 
-def _header(out):
-    out.write("Ref_file\tQuery_file\tANI\tAlign_fraction_ref\t"
-              "Align_fraction_query\n")
+def _header(out, ci=False):
+    cols = "Ref_file\tQuery_file\tANI\tAlign_fraction_ref\t" \
+           "Align_fraction_query"
+    if ci:
+        cols += "\tANI_5_percentile\tANI_95_percentile"
+    out.write(cols + "\n")
 
 
-def _emit(out, ref_name, query_name, ani, af_r, af_q):
-    out.write(f"{ref_name}\t{query_name}\t{100*ani:.2f}\t"
-              f"{100*af_r:.2f}\t{100*af_q:.2f}\n")
+def _emit(out, ref_name, query_name, ani, af_r, af_q, ci=None):
+    row = (f"{ref_name}\t{query_name}\t{100*ani:.2f}\t"
+           f"{100*af_r:.2f}\t{100*af_q:.2f}")
+    if ci is not None:
+        row += f"\t{100*ci[0]:.2f}\t{100*ci[1]:.2f}"
+    out.write(row + "\n")
 
 
 class _out_stream:
@@ -120,22 +131,38 @@ def _genome_records(paths: List[str]):
         yield os.path.basename(path), read_genome(path)
 
 
+def cmd_sketch(args) -> int:
+    from .database import Database
+    genomes = _expand_lists(args.genomes, args.list_files)
+    if not genomes:
+        print("error: no input genomes (positional or -l)", file=sys.stderr)
+        return 2
+    with Database(args.output, compression=args.compression,
+                  marker_compression=args.marker_compression, k=args.k,
+                  format=args.format, device=args.device) as db:
+        db.sketch_many(_genome_records(genomes))
+        print(f"sketched {len(genomes)} genomes", file=sys.stderr)
+    return 0
+
+
 def _run_queries(db, args, out) -> None:
     """Query each input genome and emit filtered, capped hit rows."""
-    _header(out)
+    _header(out, ci=args.ci)
     for qname, qcontigs in _genome_records(args.queries):
         hits = db.query(qname, *qcontigs, median=args.median,
                         robust=args.robust, cutoff=_screen_val(args.screen),
                         faster_small=args.faster_small,
-                        learned_ani=_learned(args.learned_ani))
+                        learned_ani=_learned(args.learned_ani),
+                        est_ci=args.ci)
         hits = [h for h in hits
                 if max(h.query_fraction,
                        h.reference_fraction) * 100 >= args.min_af]
         # max_results cap, best ANI first
         hits.sort(key=lambda h: -h.identity)
         for h in hits[:args.max_results]:
+            ci = (h.ci_low, h.ci_high) if args.ci else None
             _emit(out, h.reference_name, h.query_name, h.identity,
-                  h.reference_fraction, h.query_fraction)
+                  h.reference_fraction, h.query_fraction, ci)
 
 
 def cmd_dist(args) -> int:
@@ -150,6 +177,20 @@ def cmd_dist(args) -> int:
                   marker_compression=args.marker_compression, k=args.k,
                   device=args.device)
     db.sketch_many(_genome_records(refs))
+    with _out_stream(args.output_file) as out:
+        _run_queries(db, args, out)
+    return 0
+
+
+def cmd_search(args) -> int:
+    from .database import Database
+    args.queries = _expand_lists(args.queries, args.query_lists)
+    if not args.queries:
+        print("error: no query genomes (positional or --ql)",
+              file=sys.stderr)
+        return 2
+    opener = Database.load if args.preload else Database.open
+    db = opener(args.database, device=args.device)
     with _out_stream(args.output_file) as out:
         _run_queries(db, args, out)
     return 0
@@ -170,7 +211,7 @@ def cmd_triangle(args) -> int:
     sketches = sketch_genomes_device(list(_genome_records(genomes)), params,
                                      device=args.device)
     names = [s.name for s in sketches]
-    ri, qi, out = triangle(sketches, cfg=ChainConfig())
+    ri, qi, out = triangle(sketches, cfg=ChainConfig(est_ci=args.ci))
     key = "ani_median" if args.median else \
         "ani_robust" if args.robust else "ani_mean"
 
@@ -191,7 +232,7 @@ def cmd_triangle(args) -> int:
                 row.append(f"{diag:.2f}")
                 fh.write("\t".join(row) + "\n")
             return 0
-        _header(fh)
+        _header(fh, ci=args.ci)
         for i in range(len(ri)):
             ani = float(out[key][i])
             af_q = float(out["af_query"][i])
@@ -200,7 +241,9 @@ def cmd_triangle(args) -> int:
                 continue
             if args.distance:
                 ani = 1.0 - ani
-            _emit(fh, names[ri[i]], names[qi[i]], ani, af_r, af_q)
+            ci = (float(out["ani_ci_low"][i]),
+                  float(out["ani_ci_high"][i])) if args.ci else None
+            _emit(fh, names[ri[i]], names[qi[i]], ani, af_r, af_q, ci)
     return 0
 
 
@@ -217,21 +260,28 @@ def build_parser() -> argparse.ArgumentParser:
         description="ANI computation (skani method) on the PyTorch engine")
     sub = ap.add_subparsers(dest="command", required=True)
 
-    # skani-tpu's disk-store commands parse as there and exit with a reason
-    p = sub.add_parser("sketch", help="not ported yet (on-disk stores)")
+    p = sub.add_parser("sketch", help="sketch genomes into a database")
     p.add_argument("genomes", nargs="*")
-    p.add_argument("-l", "--list", dest="list_files", action="append")
+    p.add_argument("-l", "--list", dest="list_files", action="append",
+                   help="file listing genome paths, one per line")
     p.add_argument("-o", "--output", required=True, help="database folder")
-    p.add_argument("--format", choices=["consolidated", "separated"])
+    p.add_argument("--format", choices=["consolidated", "separated"],
+                   default=None)
     _add_sketch_params(p)
+    _add_device(p)
+    p.set_defaults(func=cmd_sketch)
 
-    p = sub.add_parser("search", help="not ported yet (on-disk stores)")
+    p = sub.add_parser("search", help="search a pre-sketched database")
     p.add_argument("queries", nargs="*")
-    p.add_argument("--ql", dest="query_lists", action="append")
+    p.add_argument("--ql", dest="query_lists", action="append",
+                   help="file listing query paths, one per line")
     p.add_argument("-d", "--database", required=True)
-    p.add_argument("--preload", action="store_true")
-    p.add_argument("--mesh", default=None, metavar="DBxBATCH")
+    p.add_argument("--preload", action="store_true",
+                   help="load all sketches onto the device up front")
+    p.add_argument("--mesh", default=None, metavar="DBxBATCH",
+                   help="several devices (not ported yet)")
     _add_query_params(p)
+    p.set_defaults(func=cmd_search)
 
     p = sub.add_parser("dist", help="ANI between query and reference genomes")
     p.add_argument("-q", "--queries", nargs="*", default=[])
@@ -266,11 +316,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.command in ("sketch", "search"):
-        return _not_ported(args.command)
-    for flag in ("ci", "mesh"):
-        if getattr(args, flag, None):
-            return _not_ported(flag)
+    if getattr(args, "mesh", None):
+        return _not_ported("mesh")
     import torch
     if torch.device(args.device).type == "cuda" and \
             not torch.cuda.is_available():

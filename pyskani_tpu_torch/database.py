@@ -1,40 +1,49 @@
 """Database: the pyskani-compatible user API over the PyTorch engine.
 
-Port of the in-memory path of the JAX package's ``database.py``: the same
-constructor defaults, ``sketch``, ``sketch_many`` (batched sketching of
-many genomes) and ``query`` (batched marker screen,
-then the chain pipelines over the shortlist, then the regression and
-aligned-fraction filters, then ``Hit``).  Shortlisted references chain on
-the packed block pipeline (``chain_block``) unless a contig of theirs
-lies past its position range, or the query is 2^30 bp or more: those
-pairs take the full-range per-pair pipeline (``chain_pairs``).  Genomes
-above the single-call sketch buffer are sketched in chunks.  Tensors
-live on ``device``, which is the card unless the caller passes
+Port of the JAX package's ``database.py``: the same constructor
+defaults, storage formats, exceptions and context-manager semantics;
+``sketch``, ``sketch_many`` (batched sketching of many genomes) and
+``query`` (batched marker screen, then the chain pipelines over the
+shortlist, then the regression and aligned-fraction filters, then
+``Hit``, with the bootstrap interval under ``est_ci=True``).
+Shortlisted references chain on the packed block pipeline
+(``chain_block``) unless a contig of theirs lies past its position range,
+or the query is 2^30 bp or more: those pairs take the full-range per-pair
+pipeline (``chain_pairs``).  Genomes above the single-call sketch buffer
+are sketched in chunks.
+
+Stores live in memory, or on disk (``Database(path)``, ``save``):
+``open`` keeps only the markers in RAM and streams the shortlisted
+sketches to the device chunk by chunk for each query
+(``engine/stream.py``); ``load`` reads every sketch onto the device.
+Tensors live on ``device``, which is the card unless the caller passes
 ``device="cpu"``; there is no silent fallback to the CPU.
 
-Not ported yet (each raises ``NotImplementedError``): on-disk stores
-(``path=``, ``open``, ``load``, ``save``), ``est_ci``, and k other than
-15.
+Not ported yet (raises ``NotImplementedError``): k other than 15.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import pathlib
 from typing import List, Optional, Union
 
 import numpy as np
 import torch
 
 from . import regression
-from .db.storage import MarkerSketch, MemoryStorage
+from .db.storage import (ConsolidatedStorage, FolderStorage, MarkerSketch,
+                         MemoryStorage, load_index, load_markers)
 from .engine.batch import (check_overflow, one_vs_many, one_vs_many_pairs,
                            repad_sketch, stack_sketches)
+from .engine.stream import stream_one_vs_many
 from .hit import Hit
 from .ops.chain import ChainConfig, EngineBudgets, rcid_bits_for
 from .ops.screen import screen_batch
-from .ops.sketch import (HostSketch, contig_budget_for, round_up,
-                         sketch_genome_device, sketch_genomes_device)
+from .ops.sketch import (HostSketch, contig_budget_for, marker_budget_for,
+                         round_up, seed_budget_for, sketch_genome_device,
+                         sketch_genomes_device)
 from .params import (MIN_ANI_KEEP, CommandParams, SEARCH_ANI_CUTOFF_DEFAULT,
                      SketchParams)
 
@@ -51,10 +60,10 @@ def _as_bytes(contig: _Sequence) -> bytes:
     return bytes(memoryview(contig))
 
 
-def _not_ported(what: str):
+def _not_ported(what: str, item: str):
     raise NotImplementedError(
-        f"{what} is not ported to the PyTorch engine yet (ROADMAP.md "
-        f"queues it); use the JAX package pyskani_tpu for it")
+        f"{what} is not ported to the PyTorch engine yet (ROADMAP {item}); "
+        f"use the JAX package pyskani_tpu for it")
 
 
 class Sketch:
@@ -131,20 +140,37 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
+def _make_folder(path) -> pathlib.Path:
+    folder = pathlib.Path(os.fsdecode(path))
+    if not folder.exists():
+        try:
+            folder.mkdir(parents=True)
+        except OSError as err:
+            raise OSError(err.errno, f"Failed to create {folder}") from None
+    return folder
+
+
+def _disk_storage(folder: pathlib.Path, format: Optional[str], device):
+    fmt = format if format is not None else "consolidated"
+    if fmt == "consolidated":
+        return ConsolidatedStorage(folder, device=device)
+    if fmt == "separated":
+        return FolderStorage(folder, device=device)
+    raise ValueError(f"invalid format: {fmt}")
+
+
 class Database:
-    """A database storing sketched genomes, in memory, on ``device``.
+    """A database storing sketched genomes, on ``device``.
 
     The database contains two sketch collections with different
-    compression levels: marker sketches (screening) and genome sketches
-    (chaining)."""
+    compression levels: marker sketches (screening), always kept in
+    memory, and genome sketches (chaining), in memory or in a folder."""
 
     def __init__(self, path=None, *, compression: int = 125,
                  marker_compression: int = 1000, k: int = 15,
                  format: Optional[str] = None, device=None):
-        if path is not None or format is not None:
-            _not_ported("an on-disk database (path=/format=)")
         if k != 15:
-            _not_ported(f"k={k} (generic k sketching)")
+            _not_ported(f"k={k} (generic k sketching)", "A.13")
         self._device = _resolve_device(device)
         self._params = SketchParams(c=compression,
                                     marker_c=marker_compression, k=k)
@@ -152,19 +178,55 @@ class Database:
         self._chain_cfg = _chain_cfg_for(self._params)
         self._screen_cache = None
         self._stack_cache = None
-        self._storage = MemoryStorage()
+        if path is None:
+            self._storage = MemoryStorage()
+            return
+        folder = _make_folder(path)
+        if (folder / "markers.bin").exists():
+            raise FileExistsError(str(folder / "markers.bin"))
+        self._storage = _disk_storage(folder, format, self._device)
 
     @classmethod
-    def open(cls, path) -> "Database":
-        _not_ported("Database.open")
+    def open(cls, path, *, device=None) -> "Database":
+        """Open a database folder, keeping only the markers in memory:
+        each query streams its shortlisted sketches from disk."""
+        folder = pathlib.Path(os.fsdecode(path))
+        markers_path = folder / "markers.bin"
+        if not markers_path.exists():
+            raise OSError(2, f"Failed to open {markers_path}")
+        params, markers = load_markers(markers_path)
+        if params.k != 15:
+            _not_ported(f"k={params.k} (generic k sketching)", "A.13")
+        self = cls.__new__(cls)
+        self._device = _resolve_device(device)
+        self._params = params
+        self._markers = markers
+        self._chain_cfg = _chain_cfg_for(params)
+        self._screen_cache = None
+        self._stack_cache = None
+        if (folder / "index.db").exists() and \
+                (folder / "sketches.db").exists():
+            self._storage = ConsolidatedStorage(folder, load_index(folder),
+                                                device=self._device)
+        else:
+            self._storage = FolderStorage(folder, device=self._device)
+        return self
 
     @classmethod
-    def load(cls, path) -> "Database":
-        _not_ported("Database.load")
+    def load(cls, path, *, device=None) -> "Database":
+        """Open a database folder and read every sketch onto the device
+        (fast queries, more memory)."""
+        self = cls.open(path, device=device)
+        mem = MemoryStorage()
+        for marker in self._markers:
+            mem.store(self._storage.load(os.path.basename(marker.name)),
+                      self._params)
+        self._storage = mem
+        return self
 
     @property
-    def path(self):
-        return None
+    def path(self) -> Optional[pathlib.Path]:
+        return self._storage.path
 
     @property
     def device(self) -> torch.device:
@@ -283,9 +345,11 @@ class Database:
               learned_ani: Optional[bool] = None, median: bool = False,
               robust: bool = False, cutoff: Optional[float] = None,
               faster_small: bool = False, est_ci: bool = False) -> List[Hit]:
-        """Query the database with a genome (pyskani lib.rs:512-660)."""
-        if est_ci:
-            _not_ported("est_ci=True (bootstrap confidence interval)")
+        """Query the database with a genome (pyskani lib.rs:512-660).
+
+        ``est_ci=True`` also computes the [5%, 95%] percentile-bootstrap
+        interval of the ANI (skani's ``--ci``) into ``Hit.ci_low`` /
+        ``Hit.ci_high``."""
         data = [_as_bytes(c) for c in contigs]
         query = sketch_genome_device(name, data, self._params, seed=seed,
                                      device=self._device)
@@ -295,8 +359,10 @@ class Database:
             screen_val=(cutoff if cutoff is not None
                         else SEARCH_ANI_CUTOFF_DEFAULT),
             robust=robust, median=median, learned_ani=learned,
-            rescue_small=not faster_small)
+            rescue_small=not faster_small, est_ci=est_ci)
         model = regression.get_model(self._params.c, cmd.learned_ani)
+        cfg = dataclasses.replace(self._chain_cfg, est_ci=True) if est_ci \
+            else self._chain_cfg
 
         hits: List[Hit] = []
         if not self._markers:
@@ -326,7 +392,8 @@ class Database:
         out: dict = {}
 
         def merge(part, names_part, budgets):
-            part = {k: v.cpu().numpy() for k, v in part.items()}
+            part = {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                    for k, v in part.items()}
             check_overflow(part, budgets)
             rows = [order[rn] for rn in names_part]
             for k, arr in part.items():
@@ -335,30 +402,54 @@ class Database:
                                       arr.dtype)
                 out[k][rows] = arr
 
-        names_all, stack, bucket, mbucket = self._ref_stack()
-        qpad = repad_sketch(query, max(bucket, qdev.seed_budget),
-                            max(mbucket, qdev.marker_budget))
+        in_memory = isinstance(self._storage, MemoryStorage)
+        if in_memory:
+            names_all, stack, bucket, mbucket = self._ref_stack()
+            qpad = repad_sketch(query, max(bucket, qdev.seed_budget),
+                                max(mbucket, qdev.marker_budget))
+        else:
+            # a disk store: budgets from the shortlist's lengths
+            tl = max((by_name[rn].total_len for rn in shortlist), default=0)
+            bucket = max(seed_budget_for(tl, self._params.c),
+                         qdev.seed_budget)
+            mbucket = max(marker_budget_for(tl, self._params.marker_c),
+                          qdev.marker_budget)
+            qpad = repad_sketch(query, bucket, mbucket)
         if block_names:
-            # the contig axis is cut to the block partition's bucket:
-            # every block-routed genome's contigs fit it
-            stack_block = stack if cb == stack.contig_lengths.shape[1] \
-                else dataclasses.replace(
-                    stack, contig_lengths=stack.contig_lengths[:, :cb])
             budgets = self._budgets_for(query, set(block_names))
             bcap = max(1, min(16, (1 << 17) // budgets.max_fragments))
-            idx = np.array([names_all.index(rn) for rn in block_names],
-                           np.int64)
-            part = one_vs_many(stack_block, qpad, idx, cfg=self._chain_cfg,
-                               budgets=budgets,
-                               chunk=_pow2_chunk(len(idx), cap=bcap))
+            chunk = _pow2_chunk(len(block_names), cap=bcap)
+            if in_memory:
+                # the contig axis is cut to the block partition's bucket:
+                # every block-routed genome's contigs fit it
+                stack_block = stack if cb == stack.contig_lengths.shape[1] \
+                    else dataclasses.replace(
+                        stack, contig_lengths=stack.contig_lengths[:, :cb])
+                idx = np.array([names_all.index(rn) for rn in block_names],
+                               np.int64)
+                part = one_vs_many(stack_block, qpad, idx, cfg=cfg,
+                                   budgets=budgets, chunk=chunk)
+            else:
+                # streamed: only the shortlisted sketches, chunk by chunk
+                part = stream_one_vs_many(
+                    lambda rn: self._storage.load(rn, device="cpu"),
+                    block_names, qpad, cfg=cfg, budgets=budgets,
+                    seed_budget=bucket, marker_budget=mbucket,
+                    contig_budget=cb, chunk=chunk)
             merge(part, block_names, budgets)
         if fb_names:
             # per-partition budgets: a giant here must not inflate the
             # block path's fragment budget, nor the other way round
             budgets = self._budgets_for(query, set(fb_names))
-            idx = np.array([names_all.index(rn) for rn in fb_names],
-                           np.int64)
-            part = one_vs_many_pairs(stack, qpad, idx, cfg=self._chain_cfg,
+            if in_memory:
+                refs = stack
+                idx = np.array([names_all.index(rn) for rn in fb_names],
+                               np.int64)
+            else:
+                refs = stack_sketches([self._storage.load(rn)
+                                       for rn in fb_names], bucket, mbucket)
+                idx = np.arange(len(fb_names))
+            part = one_vs_many_pairs(refs, qpad, idx, cfg=cfg,
                                      budgets=budgets,
                                      chunk=_pow2_chunk(len(idx), cap=4))
             merge(part, fb_names, budgets)
@@ -366,6 +457,10 @@ class Database:
         key = "ani_median" if median else \
             "ani_robust" if robust else "ani_mean"
         maf = cmd.min_aligned_frac
+
+        def clamp(v) -> float:
+            return min(max(float(v), 0.0), 1.0)
+
         for i, ref_name in enumerate(shortlist):
             ani = float(out[key][i])
             af_q = float(out["af_query"][i])
@@ -376,13 +471,29 @@ class Database:
             if af_q < maf and af_r < maf:
                 continue
             if ani > MIN_ANI_KEEP:
-                hits.append(Hit(min(max(ani, 0.0), 1.0), name, af_q,
-                                ref_name, af_r))
+                ci = dict(ci_low=clamp(out["ani_ci_low"][i]),
+                          ci_high=clamp(out["ani_ci_high"][i])) \
+                    if est_ci else {}
+                hits.append(Hit(clamp(ani), name, af_q, ref_name, af_r,
+                                **ci))
         return hits
 
     def save(self, path, overwrite: bool = False,
              format: Optional[str] = None) -> None:
-        _not_ported("Database.save")
+        """Save the database to a folder: ``consolidated`` (default)
+        writes sketches.db and index.db, ``separated`` one file per
+        sketch; both write markers.bin.  An existing markers.bin raises
+        ``FileExistsError`` unless ``overwrite``."""
+        folder = _make_folder(path)
+        if not overwrite and (folder / "markers.bin").exists():
+            raise FileExistsError(str(folder / "markers.bin"))
+        out = _disk_storage(folder, format, self._device)
+        for marker in self._markers:
+            out.store(self._storage.load(os.path.basename(marker.name)),
+                      self._params)
+        out.flush(self._params, self._markers)
 
     def flush(self) -> None:
-        """Nothing to flush for an in-memory database."""
+        """Flush the buffers to disk: markers.bin for a folder store, and
+        index.db for a consolidated one (nothing for a memory store)."""
+        self._storage.flush(self._params, self._markers)

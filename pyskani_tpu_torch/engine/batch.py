@@ -12,6 +12,7 @@ genomes past the packed range).  Python loops stand where JAX used
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import List, Sequence
 
@@ -34,8 +35,9 @@ _MARKER_FILL = dict(markers_hi=U32_SENTINEL, markers_lo=U32_SENTINEL)
 
 def repad_sketch(host: HostSketch, seed_budget: int, marker_budget: int,
                  max_contigs: int | None = None) -> DeviceSketch:
-    """Re-pad a sketch's tensors to common budgets (on its device).
-    ``max_contigs=None`` keeps the sketch's own contig-table size."""
+    """Re-pad a sketch's tensors to common budgets (on its device; on the
+    CPU it is the JAX package's ``_repad_host``).  ``max_contigs=None``
+    keeps the sketch's own contig-table size."""
     dev = host.device
     n, m, nc = int(dev.n_seeds), int(dev.n_markers), int(dev.n_contigs)
     if max_contigs is None:
@@ -60,11 +62,8 @@ def repad_sketch(host: HostSketch, seed_budget: int, marker_budget: int,
     return DeviceSketch(**fields)
 
 
-def stack_sketches(sketches: Sequence[HostSketch],
-                   seed_budget: int | None = None,
-                   marker_budget: int | None = None) -> DeviceSketch:
-    """Stack sketches into one batched DeviceSketch (leading axis N) on
-    the first sketch's device, with a common power-of-two contig table."""
+def _stack(sketches: Sequence[HostSketch], seed_budget, marker_budget,
+           contig_budget, pin: bool = False) -> DeviceSketch:
     counts = torch.stack([torch.stack([s.device.n_seeds, s.device.n_markers,
                                        s.device.n_contigs])
                           for s in sketches]).cpu()
@@ -72,11 +71,40 @@ def stack_sketches(sketches: Sequence[HostSketch],
         seed_budget = round_up(int(counts[:, 0].max()), 1024)
     if marker_budget is None:
         marker_budget = round_up(int(counts[:, 1].max()), 512)
-    cb = max(contig_budget_for(int(c)) for c in counts[:, 2])
+    cb = contig_budget if contig_budget is not None else \
+        max(contig_budget_for(int(c)) for c in counts[:, 2])
     padded = [repad_sketch(s, seed_budget, marker_budget, cb)
               for s in sketches]
-    return DeviceSketch(**{f: torch.stack([getattr(p, f) for p in padded])
-                           for f in FIELDS})
+    fields = {}
+    for f in FIELDS:
+        parts = [getattr(p, f) for p in padded]
+        out = torch.empty((len(parts),) + parts[0].shape,
+                          dtype=parts[0].dtype, pin_memory=True) \
+            if pin else None
+        fields[f] = torch.stack(parts, out=out)
+    return DeviceSketch(**fields)
+
+
+def stack_sketches(sketches: Sequence[HostSketch],
+                   seed_budget: int | None = None,
+                   marker_budget: int | None = None) -> DeviceSketch:
+    """Stack sketches into one batched DeviceSketch (leading axis N) on
+    the first sketch's device, with a common power-of-two contig table."""
+    return _stack(sketches, seed_budget, marker_budget, None)
+
+
+def stack_sketches_host(sketches: Sequence[HostSketch],
+                        seed_budget: int | None = None,
+                        marker_budget: int | None = None,
+                        contig_budget: int | None = None,
+                        pin: bool = False) -> DeviceSketch:
+    """:func:`stack_sketches` on the host: the stack's tensors are on the
+    CPU, in pinned (page-locked) memory with ``pin``, so that one
+    asynchronous copy moves a whole chunk to the card.  The contig table
+    is ``contig_budget`` wide, by default the largest member's bucket."""
+    cpu = [dataclasses.replace(s, device=s.device.map(lambda t: t.cpu()))
+           for s in sketches]
+    return _stack(cpu, seed_budget, marker_budget, contig_budget, pin)
 
 
 def take_sketch(batch: DeviceSketch, idx) -> DeviceSketch:

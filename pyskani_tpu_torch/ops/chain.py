@@ -34,6 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import prng
 from .chain_dp import chain_dp
 from .sketch import I32_SENTINEL, U32_SENTINEL, DeviceSketch
 
@@ -123,9 +124,6 @@ def _check_supported(cfg: ChainConfig):
         raise NotImplementedError("engine implements chunk/both est_side")
     if cfg.min_span_cover != 0:
         raise NotImplementedError("engine implements min_span_cover=0")
-    if cfg.est_ci:
-        raise NotImplementedError(
-            "est_ci=True: the bootstrap confidence interval is still to port")
 
 
 def _contig_layout(sk: DeviceSketch, fl: int):
@@ -194,9 +192,42 @@ def _interp_quantile(sorted_vals: torch.Tensor, n: torch.Tensor,
     return v_lo * (1 - w) + v_hi * w
 
 
-def _pooled_estimators(fa: torch.Tensor, covered: torch.Tensor):
-    """mean / 10-90% trimmed mean / median of the covered entries of each
-    row of ``fa`` [P, M] (+inf at uncovered slots)."""
+# elements of one [rows, R, M] block of bootstrap index tables
+CI_BLOCK = 1 << 27
+
+
+def _bootstrap_ci(s: torch.Tensor, n_cov: torch.Tensor, R: int):
+    """[5%, 95%] percentile-bootstrap interval of the mean of the first
+    ``n_cov`` entries of each row of the sorted ``s`` [P, M]: R resamples
+    of M indices drawn as the JAX package draws them
+    (``randint(PRNGKey(1539), (R, M), 0, max(n_cov, 1))``, ``ops/prng.py``),
+    the columns below ``n_cov`` summed in f32.  Rows go in blocks of at
+    most ``CI_BLOCK`` table elements."""
+    P, M = s.shape
+    f32, i64 = torch.float32, torch.int64
+    high, low = prng.bootstrap_bits(R, M, s.device)
+    span = torch.clamp(n_cov.to(i64), min=1)
+    uncovered = torch.arange(M, device=s.device) >= n_cov.unsqueeze(-1)
+    denom = torch.clamp(n_cov.to(f32), min=1.0)
+    rows = max(1, CI_BLOCK // (R * M))
+    boots = []
+    for lo in range(0, P, rows):
+        sl = slice(lo, lo + rows)
+        idx = prng.randint_from_bits(high, low, span[sl].view(-1, 1, 1))
+        vals = torch.gather(s[sl].unsqueeze(1).expand(-1, R, -1), 2, idx)
+        del idx
+        vals.masked_fill_(uncovered[sl].unsqueeze(1), 0.0)
+        boots.append(vals.sum(-1) / denom[sl].unsqueeze(-1))
+    boot_s = torch.sort(torch.cat(boots), -1).values
+    n = torch.full((P,), R, dtype=torch.int32, device=s.device)
+    return _interp_quantile(boot_s, n, 0.05), _interp_quantile(boot_s, n, 0.95)
+
+
+def _pooled_estimators(fa: torch.Tensor, covered: torch.Tensor,
+                       cfg: ChainConfig):
+    """mean / 10-90% trimmed mean / median (and, with ``cfg.est_ci``, the
+    bootstrap interval) of the covered entries of each row of ``fa``
+    [P, M] (+inf at uncovered slots)."""
     M = fa.shape[-1]
     f32 = torch.float32
     n_cov = covered.sum(-1, dtype=torch.int32)
@@ -217,12 +248,17 @@ def _pooled_estimators(fa: torch.Tensor, covered: torch.Tensor):
     med = 0.5 * (s.gather(-1, mid_lo.unsqueeze(-1))[..., 0] +
                  s.gather(-1, mid_hi.unsqueeze(-1))[..., 0])
     no_cov = n_cov == 0
-    return dict(
+    out = dict(
         ani_mean=torch.where(no_cov, zero, mean),
         ani_robust=torch.where(no_cov, zero, robust),
         ani_median=torch.where(no_cov, zero, med),
         n_fragments=n_cov,
     )
+    if cfg.est_ci:
+        ci_lo, ci_hi = _bootstrap_ci(s, n_cov, cfg.ci_iterations)
+        out["ani_ci_low"] = torch.where(no_cov, zero, ci_lo)
+        out["ani_ci_high"] = torch.where(no_cov, zero, ci_hi)
+    return out
 
 
 def _union_length(lo: torch.Tensor, hi: torch.Tensor,
@@ -472,7 +508,7 @@ def _post_dp_block(refs: DeviceSketch, queries: DeviceSketch,
         cov_all = torch.cat([covered_q, covered_r], 1)
     else:
         fa_all, cov_all = frag_ani_q, covered_q
-    out = _pooled_estimators(fa_all, cov_all)
+    out = _pooled_estimators(fa_all, cov_all, cfg)
 
     q_st = q_starts[tail_q]
     q_clens = queries.contig_lengths.to(i64)[tail_q]
@@ -1104,7 +1140,7 @@ def _post_dp(ref: DeviceSketch, query: DeviceSketch, grid: dict, scores,
     else:
         fa_all, cov_all = frag_ani, covered
     out = {k: v_[0] for k, v_ in
-           _pooled_estimators(fa_all[None], cov_all[None]).items()}
+           _pooled_estimators(fa_all[None], cov_all[None], cfg).items()}
 
     # ---- aligned fractions: per-contig unions of the kept chains ----
     q_clens = query.contig_lengths.to(i64)

@@ -230,7 +230,8 @@ def sketch_kernel_batch(packed_codes: torch.Tensor,
     if k != 15 or marker_k != 21:
         raise NotImplementedError(
             f"k={k} / marker_k={marker_k}: the port implements the fused "
-            f"k=15 / marker_k=21 sketch only (generic k is still to port)")
+            f"k=15 / marker_k=21 sketch only; generic k is not ported "
+            f"yet (ROADMAP A.13)")
     dev = packed_codes.device
     i64 = torch.int64
     thr = (2**64 - 1) // c

@@ -99,9 +99,6 @@ def test_chain_block_rejects_unsupported(family):
                         max_anchors_per_fragment=64)
     with pytest.raises(ValueError, match="block too large"):
         chain_block(fam, fam, cfg=ChainConfig(), budgets=big)
-    with pytest.raises(NotImplementedError, match="est_ci"):
-        chain_block(fam, fam, cfg=ChainConfig(est_ci=True),
-                    budgets=EngineBudgets(**SIZES))
 
 
 @pytest.mark.parametrize("max_anchors", [200, 4096])

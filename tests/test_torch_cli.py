@@ -1,14 +1,16 @@
-"""Port CLI (``dist``, ``triangle``) vs the JAX package's CLI.
+"""Port CLI (``sketch``, ``dist``, ``search``, ``triangle``) vs the JAX
+package's CLI.
 
 The same FASTA files go through ``pyskani_tpu.cli`` and
 ``pyskani_tpu_torch.cli --device cpu``: the same rows, and every number
 within 0.01 of the JAX package's printed value (both print 2 decimals, so
-a last-ulp difference may flip the rounding).  Commands and flags that
-are not ported yet exit with code 2; without CUDA the default device
-refuses to run.
+a last-ulp difference may flip the rounding).  ``--mesh`` and k other
+than 15 are not ported yet and exit with code 2, naming their ROADMAP
+items; without CUDA the default device refuses to run.
 """
 
 import gzip
+import os
 
 import numpy as np
 import pytest
@@ -75,6 +77,11 @@ def _assert_same_output(got: str, want: str):
                 assert a == b
                 continue
             assert abs(fa - fb) <= 0.01 + 1e-9, (g_line, w_line)
+    if len(g_lines[0].split("\t")) == 7:
+        # the --ci bounds agree within 1e-6 (tests/test_torch_ci.py), so
+        # their printed percentages agree exactly on these inputs
+        for g_line, w_line in zip(g_lines[1:], w_lines[1:]):
+            assert g_line.split("\t")[5:] == w_line.split("\t")[5:]
 
 
 TRIANGLE = {
@@ -135,12 +142,13 @@ def test_dist_matches_jax_cli(fasta, capsys, variant):
 
 
 NOT_PORTED = {
-    "sketch": (["sketch", "-o", "DB", "base.fa"], "A.10"),
-    "search": (["search", "-d", "DB", "base.fa"], "A.10"),
-    "dist_ci": (["dist", "-q", "base.fa", "-r", "mut3.fa", "--ci"], "A.9"),
-    "triangle_ci": (["triangle", "base.fa", "mut3.fa", "--ci"], "A.9"),
     "triangle_mesh": (["triangle", "base.fa", "mut3.fa", "--mesh", "2x1"],
                       "A.12"),
+    "search_mesh": (["search", "-d", "DB", "base.fa", "--mesh", "2x1"],
+                    "A.12"),
+    "dist_k": (["dist", "-q", "base.fa", "-r", "mut3.fa", "-k", "16"],
+               "A.13"),
+    "triangle_k": (["triangle", "base.fa", "mut3.fa", "-k", "16"], "A.13"),
 }
 
 
@@ -148,20 +156,85 @@ NOT_PORTED = {
 def test_not_ported_exit_2(fasta, capsys, case):
     argv, item = NOT_PORTED[case]
     rc, out, err = _run(cli.main, [fasta.get(a, a) for a in argv] +
-                        ["--device", "cpu"] * (argv[0] in ("dist",
-                                                            "triangle")),
-                        capsys)
+                        ["--device", "cpu"], capsys)
     assert rc == 2
     assert "not ported" in err and f"ROADMAP {item}" in err
     assert out == ""
 
 
-def test_default_device_refuses_without_cuda(fasta, capsys, monkeypatch):
+SEARCH = {
+    "open": [],
+    "preload": ["--preload"],
+    "ci": ["--ci", "--learned-ani", "no"],
+    "preload_ci": ["--preload", "--ci"],
+}
+
+
+@pytest.fixture(scope="module")
+def stores(fasta, tmp_path_factory):
+    """The family's reference store sketched by each CLI, in each format:
+    {(cli, format): folder}."""
+    refs = [fasta[n] for n in ("base.fa", "draft.fa", "other.fa")]
+    out = {}
+    for label, main, extra in (("jax", jax_cli.main, []),
+                               ("port", cli.main, ["--device", "cpu"])):
+        for fmt in ("consolidated", "separated"):
+            d = tmp_path_factory.mktemp(f"{label}_{fmt}")
+            assert main(["sketch", *refs, "-o", str(d), "--format", fmt,
+                         *extra]) == 0
+            out[(label, fmt)] = d
+    return out
+
+
+def test_sketch_writes_the_chosen_format(stores):
+    """``--format`` reaches the store (the JAX CLI parses it and drops it,
+    so its stores are consolidated either way)."""
+    names = {k: sorted(os.listdir(v)) for k, v in stores.items()}
+    assert names[("port", "consolidated")] == \
+        ["index.db", "markers.bin", "sketches.db"]
+    assert names[("port", "separated")] == \
+        ["base.fa.sketch", "draft.fa.sketch", "markers.bin",
+         "other.fa.sketch"]
+    for fmt in ("consolidated", "separated"):
+        assert names[("jax", fmt)] == names[("port", "consolidated")]
+    for f in names[("jax", "consolidated")]:
+        assert (stores[("port", "consolidated")] / f).read_bytes() == \
+            (stores[("jax", "consolidated")] / f).read_bytes(), f
+
+
+@pytest.mark.parametrize("fmt", ["consolidated", "separated"])
+@pytest.mark.parametrize("variant", list(SEARCH))
+def test_sketch_search_matches_jax_cli(fasta, stores, capsys, variant, fmt):
+    queries = [fasta["mut1.fa.gz"], fasta["mut3.fa"]]
+    rc_w, want, _ = _run(jax_cli.main, ["search", "-d",
+                                        str(stores[("jax", fmt)]), *queries,
+                                        *SEARCH[variant]], capsys)
+    rc, got, _ = _run(cli.main, ["search", "-d", str(stores[("port", fmt)]),
+                                 *queries, *SEARCH[variant], "--device",
+                                 "cpu"], capsys)
+    assert rc == rc_w == 0
+    _assert_same_output(got, want)
+    rows = got.strip().splitlines()
+    assert len(rows) == 1 + 4
+    assert len(rows[1].split("\t")) == (7 if "--ci" in SEARCH[variant]
+                                        else 5)
+
+
+def test_search_without_queries_exits_2(stores, capsys):
+    rc, out, err = _run(cli.main, ["search", "-d",
+                                   str(stores[("port", "separated")]),
+                                   "--device", "cpu"], capsys)
+    assert rc == 2 and out == "" and "no query genomes" in err
+
+
+def test_default_device_refuses_without_cuda(fasta, capsys, monkeypatch,
+                                             tmp_path):
     """Without CUDA and without ``--device cpu`` the CLI exits non-zero
     instead of running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for argv in (["triangle", fasta["base.fa"], fasta["mut3.fa"]],
-                 ["dist", "-q", fasta["base.fa"], "-r", fasta["mut3.fa"]]):
+                 ["dist", "-q", fasta["base.fa"], "-r", fasta["mut3.fa"]],
+                 ["sketch", fasta["base.fa"], "-o", str(tmp_path / "db")]):
         rc, out, err = _run(cli.main, argv, capsys)
         assert rc != 0 and out == ""
         assert "CUDA is not available" in err and "--device cpu" in err

@@ -86,6 +86,40 @@ def test_port_imports_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
+def test_new_modules_are_checked():
+    mods = _modules()
+    for m in ("pyskani_tpu_torch.ops.prng", "pyskani_tpu_torch.engine.stream",
+              "pyskani_tpu_torch.db.storage"):
+        assert m in mods
+
+
+def test_disk_store_stream_and_ci_run_with_jax_blocked(tmp_path):
+    """A store saved, opened (streamed query with the bootstrap interval)
+    and loaded, in an interpreter in which JAX cannot be imported."""
+    code = (
+        "import sys\n"
+        f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "import numpy as np\n"
+        "import pyskani_tpu_torch as p\n"
+        "rng = np.random.default_rng(3)\n"
+        "g = rng.choice(np.frombuffer(b'ACGT', np.uint8), 40000).tobytes()\n"
+        "q = bytearray(g); q[::97] = b'A' * len(q[::97])\n"
+        "db = p.Database(device='cpu')\n"
+        "db.sketch('g', g)\n"
+        f"db.save({str(tmp_path)!r}, format='separated')\n"
+        "for opener in (p.Database.open, p.Database.load):\n"
+        f"    h = opener({str(tmp_path)!r}, device='cpu').query(\n"
+        "        'q', bytes(q), est_ci=True)\n"
+        "    assert len(h) == 1 and h[0].ci_low <= h[0].ci_high, h\n"
+        "print('ok')\n")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_chip_smoke_refuses_without_cuda():
     """chip_smoke.py exits non-zero and prints no result where CUDA is
     absent (the case on a CPU-only machine)."""

@@ -74,27 +74,45 @@ Phases (any failure exits non-zero and prints no result line):
              tables bit-equal card vs CPU, and the wall-time overhead.
              (d) ``cli.main(["sketch", ...])`` on 4 FASTA files, then
              ``search --ci`` with and without ``--preload``: rows equal
-             the library's.  The folder is removed at the end;
-9. kernels — every DP grid the search, fallback, giant, triangle and
-             disk phases fed the kernel, random tie-heavy grids and edge grids
-             (PF = 100, bands 0/1/25/32, anchors resuming after 40 invalid
-             columns, empty rows, a tie across two 32-column chunks,
-             contig-local positions in [2^30, 2^31) with reverse strands
-             and gaps at max_gap_length +- 1) through the CUDA kernel and
-             its plain PyTorch version: score and root must be bit-equal.
-             Times the kernel on the first search grid, the largest
-             ``chain_pairs`` grid of the fallback phase, a giant grid and
-             the family triangle's group and cross-tile grids as device
-             time (launches queued behind a sleep kernel, so the host's
-             enqueue is off the clock), warm and with L2 flushed, the
+             the library's; the files read by the native FASTA reader and
+             by the Python parser (same contigs, MB/s of each).  The
+             folder is removed at the end;
+9. generic_k — (a) ``sketch_kernel_batch`` at nine (k, marker_k) pairs
+             (k 4, 9, 16, 17, 21, 32 with marker_k 21; 15, 21, 32 with
+             marker_k 32) on a stack of two E. coli EC590 slices (1 Mbp,
+             0.6 Mbp): card equals CPU port on every output key.  (b) 128
+             genomes (8 families of 16, roots of 2-5 Mbp, the search
+             phase's generator) through ``Database(k=K).sketch_many`` at
+             K = 15, 21, 32, two alternated rounds (Mbp/s, peak memory);
+             8 queries on the k = 21 store, each hitting exactly its
+             family, the first against the CPU port (1e-6); one query and
+             one ``sketch_many`` with profiling on, whose counters and
+             calls must equal what the phase knows.  (c) the k = 21 store
+             saved and opened (2 streamed queries equal the memory
+             store's) and ``cli.main(["dist", ..., "-k", "21"])`` rows
+             equal the library's;
+10. kernels — every DP grid the search, fallback, giant, triangle, disk
+             and generic_k phases fed the kernel, random tie-heavy grids
+             and edge grids (PF = 100, bands 0/1/25/32, anchors resuming
+             after 40 invalid columns, empty rows, a tie across two
+             32-column chunks, contig-local positions in [2^30, 2^31)
+             with reverse strands and gaps at max_gap_length +- 1)
+             through the CUDA kernel and its plain PyTorch version: score
+             and root must be bit-equal.  Times the kernel on the first
+             search grid, the largest ``chain_pairs`` grid of the
+             fallback phase, a giant grid, the family triangle's group
+             and cross-tile grids and the first k = 21 search grid as
+             device time (launches queued behind a sleep kernel, so the
+             host's enqueue is off the clock), warm and with L2 flushed, the
              wrapper's host time per call and the plain version, and
              computes the card's bound for the work.
 
 The chain-DP kernel's launch count is reset just before the main-path
 calls of each phase (the search's queries, the fallback's queries, the
 giant query, each of the three triangles, each timed run of the disk
-phase) and read just after; each must launch it, the per-pair path for
-every fallback query, and the family triangle exactly 3 times.
+phase, the k = 21 queries, streamed queries and CLI) and read just
+after; each must launch it, the per-pair path for every fallback query,
+and the family triangle exactly 3 times.
 
 The last three lines are the card line, one ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
@@ -144,6 +162,15 @@ TRIANGLE = dict(genomes=64, length=2_300_000)
 # queries run on it (decoding 64 sketches per query is the phase's largest
 # cost)
 DISK = dict(copies=4, queries=4)
+# generic_k phase: (a) the nine (k, marker_k) pairs of the sketch check;
+# (b) a search store of 8 families x 16 (the search phase's generator),
+# sketched at each k in ``rates`` (two alternated rounds), 8 queries at
+# k = 21
+GENERIC_K = dict(pairs=((4, 21), (9, 21), (16, 21), (17, 21), (21, 21),
+                        (32, 21), (15, 32), (21, 32), (32, 32)),
+                 slice_bp=(1_000_000, 600_000), families=8, per_family=16,
+                 root_bp=(2_000_000, 5_000_000), rates=(15, 21, 32),
+                 rounds=2)
 FLOAT_KEYS = ("ani_mean", "ani_robust", "ani_median", "af_query", "af_ref")
 INT_KEYS = ("n_anchors", "n_fragments")
 
@@ -1050,6 +1077,45 @@ def phase_triangle(result, torch, dev, args, rec, db):
     return fam_launches + mixed_launches + cli_launches, family
 
 
+def _write_fasta(path, name: str, g: bytes, width: int = 80) -> str:
+    """One-record FASTA file with lines of ``width`` bases."""
+    with open(path, "wb") as f:
+        f.write(b">" + name.encode() + b"\n")
+        f.write(b"\n".join(g[i:i + width] for i in range(0, len(g), width)))
+        f.write(b"\n")
+    return path
+
+
+def _reader_rates(paths, reps: int = 3) -> dict:
+    """The port's native FASTA reader against its Python parser on the
+    same files: MB/s of each (medians of ``reps`` alternated reads of all
+    files), failing unless the reader built and both read the same
+    contigs."""
+    from pyskani_tpu_torch.io import native
+    from pyskani_tpu_torch.io.fasta import read_genome
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"the native FASTA reader did not build: "
+                             f"{native.build_log}")
+    build_s = time.perf_counter() - t0
+    mb = sum(os.path.getsize(p) for p in paths) / 1e6
+    walls, got = {"native": [], "python": []}, {}
+    for _ in range(reps):
+        for label, fn in (("native", native.read_contigs),
+                          ("python", read_genome)):
+            t0 = time.perf_counter()
+            got[label] = [fn(p) for p in paths]
+            walls[label].append(time.perf_counter() - t0)
+    if got["native"] != got["python"]:
+        raise AssertionError("the native reader and the Python parser read "
+                             "different contigs")
+    return dict(build_s=build_s, mb=mb, native_s=walls["native"],
+                python_s=walls["python"],
+                native_mb_s=mb / float(np.median(walls["native"])),
+                python_mb_s=mb / float(np.median(walls["python"])))
+
+
 def _dir_bytes(path) -> int:
     return sum(os.path.getsize(os.path.join(d, f))
                for d, _, files in os.walk(path) for f in files)
@@ -1464,11 +1530,16 @@ def phase_disk(result, torch, dev, rec, db, queries, fb_db, fb_queries,
                 for k, v in overhead.items()))
 
         # ---- (d) the CLI: sketch, then search --ci (open and preload) ----
-        paths = []
-        for n, g in zip(family["names"][:4], family["genomes"][:4]):
-            paths.append(os.path.join(tmp, f"{n}.fa"))
-            with open(paths[-1], "wb") as f:
-                f.write(b">" + n.encode() + b"\n" + g + b"\n")
+        paths = [_write_fasta(os.path.join(tmp, f"{n}.fa"), n, g)
+                 for n, g in zip(family["names"][:4], family["genomes"][:4])]
+        # the CLI reads through the native reader: its rate beside the
+        # Python parser's, and the same contigs from both
+        rep["reader"] = reader = _reader_rates(paths)
+        log(f"[disk] FASTA reading, {reader['mb']:.1f} MB in 4 files "
+            f"(medians of {len(reader['native_s'])} alternated reads): native "
+            f"reader {reader['native_mb_s']:.1f} MB/s, Python parser "
+            f"{reader['python_mb_s']:.1f} MB/s, same contigs; reader built "
+            f"in {reader['build_s']:.2f} s")
         store = os.path.join(tmp, "cli_db")
         rec.phase = "disk_cli"
         try:
@@ -1529,6 +1600,268 @@ def phase_disk(result, torch, dev, rec, db, queries, fb_db, fb_queries,
     log(f"[disk] chain-DP launches on the disk phase's main paths: {total} "
         f"{ {k: launches[k] for k in main_path} }")
     return total
+
+
+def _kernel_stack(torch, seqs, dev):
+    """``sketch_kernel_batch`` inputs for a stack of one-contig genomes:
+    packed codes [B, L//4] and starts [B, 9] on ``dev``."""
+    from pyskani_tpu_torch.ops.sketch import encode_pack, round_up
+    L = round_up(max(len(s) for s in seqs), 1 << 20)
+    raw = np.zeros((len(seqs), L), np.uint8)
+    starts = np.zeros((len(seqs), 9), np.int32)
+    for b, s in enumerate(seqs):
+        raw[b, :len(s)] = np.frombuffer(s, np.uint8)
+        starts[b, 1:] = len(s)
+    return (encode_pack(torch.from_numpy(raw).to(dev)),
+            torch.from_numpy(starts).to(dev))
+
+
+def _cli_rows(hits, min_af=15.0):
+    """The rows ``dist`` prints for one query's hits (best ANI first)."""
+    hits = sorted(hits, key=lambda h: -h.identity)
+    return [f"{h.reference_name}\t{h.query_name}\t{100 * h.identity:.2f}\t"
+            f"{100 * h.reference_fraction:.2f}\t"
+            f"{100 * h.query_fraction:.2f}" for h in hits
+            if max(h.query_fraction, h.reference_fraction) * 100 >= min_af]
+
+
+def phase_generic_k(result, torch, dev, args, rec):
+    """Generic k on the card.  (a) ``sketch_kernel_batch`` at the nine
+    (k, marker_k) pairs on a stack of two E. coli slices, card vs CPU
+    port on every output key; (b) a k = 21 search store of 128 genomes
+    built with ``sketch_many`` (sketch rates and peak memory at k = 15,
+    21 and 32 on the same genomes), 8 queries each hitting its family,
+    one against the CPU port, and one query and one ``sketch_many`` with
+    profiling on; (c) the k = 21 store saved and opened, and the CLI's
+    ``dist -k 21`` against the library.  Returns the chain-DP launches of
+    its main-path runs."""
+    import shutil
+    import tempfile
+
+    import pyskani_tpu_torch
+    from pyskani_tpu_torch import cli
+    from pyskani_tpu_torch import database as dbmod
+    from pyskani_tpu_torch.io.fasta import parse
+    from pyskani_tpu_torch.ops import chain_dp as dp_mod
+    from pyskani_tpu_torch.ops.sketch import (marker_budget_for,
+                                              seed_budget_for,
+                                              sketch_kernel_batch)
+    from pyskani_tpu_torch.utils import profiling
+
+    G = GENERIC_K
+    Database = pyskani_tpu_torch.Database
+    rep, launches = {}, {}
+
+    # ---- (a) the sketch kernel at nine (k, marker_k), card vs CPU ----
+    ec590 = next(iter(parse(os.path.join(
+        ROOT, "tests", "data", "e.coli-EC590.fasta.gz")))).seq
+    a, b = G["slice_bp"]
+    seqs = [ec590[:a], ec590[a:a + b]]
+    packed, starts = _kernel_stack(torch, seqs, dev)
+    packed_cpu, starts_cpu = packed.cpu(), starts.cpu()
+    counts = {}
+    for k, mk in G["pairs"]:
+        kw = dict(k=k, marker_k=mk, c=125, marker_c=1000,
+                  seed_budget=seed_budget_for(a, 125),
+                  marker_budget=marker_budget_for(a, 1000))
+        card = sketch_kernel_batch(packed, starts, [1, 1], **kw)
+        cpu = sketch_kernel_batch(packed_cpu, starts_cpu, [1, 1], **kw)
+        for key, want in cpu.items():
+            if not torch.equal(card[key].cpu(), want):
+                raise AssertionError(f"sketch k={k} marker_k={mk}: {key} "
+                                     f"differs card vs CPU")
+        if mk == 32 and not (card["markers_hi"][:, :int(
+                card["n_markers"].min())] >= 1 << 31).any():
+            raise AssertionError("marker_k=32: no marker at or above 2^63")
+        counts[f"{k}/{mk}"] = card["n_seeds"].tolist() + \
+            card["n_markers"].tolist()
+    del packed, starts, card, cpu
+    rep["kernel_pairs"] = counts
+    log(f"[generic_k] sketch_kernel_batch on 2 E. coli slices ({a} + {b} "
+        f"bp) equals the CPU port on every output key at {len(counts)} "
+        f"(k, marker_k): seeds, seeds, markers, markers {counts}")
+
+    # ---- (b) a k = 21 search store, sketch rates at k = 15 / 21 / 32 ----
+    rng = np.random.default_rng(args.seed + 5)
+    nf, per = G["families"], G["per_family"]
+    root_len = rng.integers(G["root_bp"][0], G["root_bp"][1] + 1, nf)
+    roots = [ACGT[rng.integers(0, 4, int(L))] for L in root_len]
+    items = []
+    for f in range(nf):
+        for m in range(per):
+            d = rng.uniform(0.005, 0.05)
+            items.append((f"f{f}_m{m:02d}",
+                          [mutate(rng, roots[f], d, d / 10).tobytes()]))
+    queries = [(f"q{f}", mutate(rng, roots[f], 0.01, 0.001).tobytes())
+               for f in range(nf)]
+    bp = sum(len(c[0]) for _, c in items)
+    rates = {k: dict(mbp_s=[], wall_s=[], peak_gib=[]) for k in G["rates"]}
+    for _ in range(G["rounds"]):
+        for k in G["rates"]:
+            store = Database(k=k)
+            _, wall, peak = _timed(torch, lambda: store.sketch_many(items))
+            rates[k]["mbp_s"].append(bp / 1e6 / wall)
+            rates[k]["wall_s"].append(wall)
+            rates[k]["peak_gib"].append(peak)
+            if k == 21:
+                db = store
+            del store
+    rep["sketch_rates"] = rates
+    log(f"[generic_k] sketch_many of {len(items)} genomes ({bp / 1e9:.3f} "
+        f"Gbp), {G['rounds']} alternated rounds: " + "; ".join(
+            f"k={k} {[round(x, 1) for x in r['mbp_s']]} Mbp/s, peak +"
+            f"{[round(x, 2) for x in r['peak_gib']]} GiB"
+            for k, r in rates.items()))
+
+    passed = []
+    real_screen = dbmod.screen_batch
+
+    def screen_and_count(*a, **kw):
+        passes, est = real_screen(*a, **kw)
+        passed.append(int(passes.sum()))
+        return passes, est
+
+    dbmod.screen_batch = screen_and_count
+    rec.phase = "generic_k"
+    dp_mod.chain_dp.launches = 0
+    q_times, all_hits = [], []
+    try:
+        for f, (qname, q) in enumerate(queries):
+            t0 = time.perf_counter()
+            hits = db.query(qname, q, learned_ani=False)
+            torch.cuda.synchronize()
+            q_times.append(time.perf_counter() - t0)
+            all_hits.append(hits)
+            names = sorted(h.reference_name for h in hits)
+            want = [f"f{f}_m{m:02d}" for m in range(per)]
+            if names != want:
+                raise AssertionError(f"k=21 {qname}: hits {names} != {want}")
+            for h in hits:
+                if not (0.9 < h.identity <= 1.0 and
+                        0.0 < h.query_fraction <= 1.0 and
+                        0.0 < h.reference_fraction <= 1.0):
+                    raise AssertionError(f"k=21 {qname}: implausible {h}")
+        launches["search"] = dp_mod.chain_dp.launches
+        rec.phase = None
+
+        # the first query against two of its family on the CPU port
+        cpu = Database(k=21, device="cpu")
+        for h in all_hits[0][:2]:
+            cpu._register_sketch(db._storage.load(h.reference_name))
+        card = {h.reference_name: h for h in all_hits[0]}
+        cpu_hits = cpu.query(*queries[0], learned_ani=False)
+        worst = max(_hit_diff(h, card[h.reference_name]) for h in cpu_hits)
+        if len(cpu_hits) != 2 or worst > 1e-6:
+            raise AssertionError(f"k=21 card vs CPU port: {cpu_hits} (max "
+                                 f"diff {worst})")
+
+        # one query and one sketch_many with profiling on, outside the
+        # timed runs: the counters must be what this phase knows
+        rec.phase, rec.keep = "generic_k_profile", False
+        passed.clear()
+        profiling.enable()
+        profiling.reset_stats()
+        try:
+            prof_hits = db.query(*queries[1], learned_ani=False)
+            Database(k=21).sketch_many(items[:8])
+            snap = profiling.stats().snapshot()
+        finally:
+            profiling.disable()
+            profiling.reset_stats()
+            rec.phase, rec.keep = None, True
+    finally:
+        dbmod.screen_batch = real_screen
+        rec.phase = None
+    want = dict(bases_sketched=float(len(queries[1][1]) + sum(
+        len(c[0]) for _, c in items[:8])), refs_screened=float(len(items)),
+        screen_passed=float(passed[0]), pairs_chained=float(passed[0]))
+    got = {key: snap["counters"].get(key) for key in want}
+    if got != want or len(prof_hits) != per or snap["calls"] != dict(
+            sketch=2, screen=1, chain=1) or not all(
+            t > 0 for t in snap["timers_s"].values()):
+        raise AssertionError(f"profiling snapshot {snap} != {want}")
+    rep["profile_snapshot"] = snap
+    log(f"[generic_k] profiling on (one query, one sketch_many of 8): "
+        f"{json.dumps(snap)}")
+    steady = q_times[1:]
+    rep.update(search=dict(refs=len(items), bp=bp, query_s=q_times,
+                           queries_per_s=len(q_times) / sum(q_times),
+                           steady_queries_per_s=len(steady) / sum(steady),
+                           cpu_check_max_diff=worst,
+                           dp_launches=launches["search"]))
+    log(f"[generic_k] k=21: {len(queries)} queries, each hits exactly its "
+        f"family of {per}: first {q_times[0]:.3f} s, then "
+        f"{len(steady) / sum(steady):.2f} queries/s; first query vs the CPU "
+        f"port on 2 references max |diff| {worst:.3g}; chain-DP launches "
+        f"{launches['search']}")
+
+    # ---- (c) the k = 21 store on disk, and the CLI's dist -k 21 ----
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_k21_")
+    try:
+        path = os.path.join(tmp, "store")
+        _, save_s, _ = _timed(torch, lambda: db.save(path))
+        opened = Database.open(path)
+        if opened._params.k != 21:
+            raise AssertionError(f"opened store has k={opened._params.k}")
+        rec.phase, rec.keep = "generic_k_open", False
+        try:
+            dp_mod.chain_dp.launches = 0
+            hits = [opened.query(n, q, learned_ani=False)
+                    for n, q in queries[:2]]
+            launches["open"] = dp_mod.chain_dp.launches
+        finally:
+            rec.phase, rec.keep = None, True
+        d_open = max(_same_hits(h, m, "k=21 open")
+                     for h, m in zip(hits, all_hits))
+        if d_open > 1e-6:
+            raise AssertionError(f"k=21 open hits differ by {d_open}")
+        del opened
+
+        refs = [items[0], items[1], items[per]]
+        rpaths = [_write_fasta(os.path.join(tmp, f"{n}.fa"), n, c[0])
+                  for n, c in refs]
+        qpath = _write_fasta(os.path.join(tmp, "q0.fa"), "q0",
+                             queries[0][1])
+        tsv = os.path.join(tmp, "dist.tsv")
+        rec.phase = "generic_k_cli"
+        try:
+            dp_mod.chain_dp.launches = 0
+            if cli.main(["dist", "-q", qpath, "-r", *rpaths, "-k", "21",
+                         "--learned-ani", "no", "--device", "cuda", "-o",
+                         tsv]) != 0:
+                raise AssertionError("CLI dist -k 21 failed")
+            launches["cli"] = dp_mod.chain_dp.launches
+        finally:
+            rec.phase = None
+        with open(tsv) as f:
+            rows = f.read().splitlines()
+        rec.phase, rec.keep = "generic_k_cli_checks", False
+        try:
+            lib = Database(k=21)
+            lib.sketch_many([(os.path.basename(p), c)
+                             for p, (_, c) in zip(rpaths, refs)])
+            want = ["Ref_file\tQuery_file\tANI\tAlign_fraction_ref\t"
+                    "Align_fraction_query"] + _cli_rows(lib.query(
+                        "q0.fa", queries[0][1], learned_ani=False))
+        finally:
+            rec.phase, rec.keep = None, True
+        if rows != want or len(rows) != 3:
+            raise AssertionError(f"CLI dist -k 21 rows {rows} != {want}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rep["disk"] = dict(save_s=save_s, open_max_diff=d_open,
+                       dp_launches=launches["open"])
+    rep["cli"] = dict(rows=len(rows) - 1, dp_launches=launches["cli"])
+    log(f"[generic_k] k=21 store saved in {save_s:.2f} s, opened: 2 "
+        f"streamed queries equal the memory store's (max |diff| "
+        f"{d_open:.3g}); CLI dist -k 21: {len(rows) - 1} rows equal to the "
+        f"library's; chain-DP launches {launches}")
+    for label, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"generic_k {label}: no chain-DP launch")
+    rep["dp_launches"] = launches
+    result["generic_k"] = rep
+    return sum(launches.values())
 
 
 def _tie_grid(rng, R, PF, torch, dev):
@@ -1819,6 +2152,8 @@ def phase_kernels(result, torch, dev, rec, launches):
     tri_cross = _time_kernel(
         torch, dev, rec.grids_of("triangle", "chain_block")[0], cfg,
         "triangle cross tile", n_plain=1)
+    k21 = _time_kernel(torch, dev, rec.grids_of("generic_k")[0], cfg,
+                       "k=21 search")
     profiles = {ph: _row_profile(rec.grids_of(ph, "chain_pairs"))
                 for ph in ("fallback", "giant")}
     log(f"[kernels] chain_pairs row profiles (valid anchors per row): "
@@ -1835,7 +2170,7 @@ def phase_kernels(result, torch, dev, rec, launches):
     result["kernels"] = [entry]
     result["kernel_detail"] = dict(
         search=search, fallback=fallback, giant=giant,
-        triangle_group=tri_group, triangle_cross=tri_cross,
+        triangle_group=tri_group, triangle_cross=tri_cross, k21_search=k21,
         pair_row_profiles=profiles,
         registers=regs, grids_checked=len(cases), recorded=counts,
         plain_s=plain_s)
@@ -1893,12 +2228,14 @@ def main() -> int:
         disk_launches = phase_disk(result, torch, dev, rec, search_db,
                                    search_queries, db, queries, fb_hits,
                                    family, overlap=args.overlap)
-    del db, search_db, family
+        del db, search_db, family
+        gk_launches = phase_generic_k(result, torch, dev, args, rec)
     launches = search_launches + fb_launches + giant_launches + \
-        tri_launches + disk_launches
+        tri_launches + disk_launches + gk_launches
     log(f"[launches] chain-DP kernel on the main paths: search "
         f"{search_launches}, fallback {fb_launches}, giant {giant_launches}, "
-        f"triangle {tri_launches}, disk {disk_launches}")
+        f"triangle {tri_launches}, disk {disk_launches}, generic_k "
+        f"{gk_launches}")
     entry = phase_kernels(result, torch, dev, rec, launches)
     result["total_s"] = time.perf_counter() - t_start
     log(f"[done] {result['total_s']:.1f} s")

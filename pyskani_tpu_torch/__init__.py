@@ -12,5 +12,15 @@ from .database import Database, Sketch
 from .hit import Hit
 
 __version__ = "0.1.0"
+__author__ = "pyskani-tpu developers"
 
-__all__ = ["Sketch", "Database", "Hit"]
+# Version of the skani method this engine reimplements (the JAX
+# package's value: it documents method compatibility).
+SKANI_VERSION = "0.3.0-compat"
+
+__build__ = {
+    "backend": "torch/cuda",
+    "dependencies": {"skani": SKANI_VERSION},
+}
+
+__all__ = ["Sketch", "Database", "Hit", "SKANI_VERSION"]

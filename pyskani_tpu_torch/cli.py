@@ -12,9 +12,13 @@ with ``--ci`` adding ANI_5_percentile and ANI_95_percentile (the
 bootstrap interval).  ``sketch --format`` sets the store's format.
 
 Every command runs on ``--device`` (default ``cuda``; ``cpu`` runs the
-plain PyTorch versions).  Not ported yet, exiting with code 2 and naming
-their ROADMAP items: ``--mesh`` (several devices) and ``-k`` other than
-15.
+plain PyTorch versions) and takes ``-k`` (4-32, default 15).  FASTA files
+are read by the port's native reader (``io/native.py``, built with g++
+at first use), or by the Python parser where it cannot be built.  With
+``PYSKANI_TORCH_PROFILE=1`` each command ends by printing
+``stats: <json>`` (``utils/profiling.py``) on stderr.  Not ported yet,
+exiting with code 2 and naming its ROADMAP item: ``--mesh`` (several
+devices).
 """
 
 from __future__ import annotations
@@ -125,10 +129,11 @@ def _expand_lists(paths: List[str], list_files: List[str] | None) -> List[str]:
 
 
 def _genome_records(paths: List[str]):
-    """Yield (name, contigs) per FASTA file (whole file = one genome)."""
-    from .io.fasta import read_genome
+    """Yield (name, contigs) per FASTA file (whole file = one genome),
+    read by the native reader where it is built, else the Python parser."""
+    from .io.native import read_contigs
     for path in paths:
-        yield os.path.basename(path), read_genome(path)
+        yield os.path.basename(path), read_contigs(path)
 
 
 def cmd_sketch(args) -> int:
@@ -197,8 +202,10 @@ def cmd_search(args) -> int:
 
 
 def cmd_triangle(args) -> int:
+    import dataclasses
+
+    from .database import _chain_cfg_for
     from .engine.batch import triangle
-    from .ops.chain import ChainConfig
     from .ops.sketch import sketch_genomes_device
     from .params import SketchParams
 
@@ -211,7 +218,10 @@ def cmd_triangle(args) -> int:
     sketches = sketch_genomes_device(list(_genome_records(genomes)), params,
                                      device=args.device)
     names = [s.name for s in sketches]
-    ri, qi, out = triangle(sketches, cfg=ChainConfig(est_ci=args.ci))
+    # the chain takes the sketch's k (ANI exponent 1/k, intervals extended
+    # by k-1), as Database.query does; the JAX CLI's triangle keeps k=15
+    cfg = dataclasses.replace(_chain_cfg_for(params), est_ci=args.ci)
+    ri, qi, out = triangle(sketches, cfg=cfg)
     key = "ani_median" if args.median else \
         "ani_robust" if args.robust else "ani_mean"
 
@@ -325,10 +335,16 @@ def main(argv=None) -> int:
               f"--device cpu to run on the CPU", file=sys.stderr)
         return 1
     try:
-        return args.func(args)
+        rc = args.func(args)
     except NotImplementedError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    from .utils import profiling
+    if profiling.enabled():
+        import json
+        snap = profiling.stats().snapshot()
+        print("stats: " + json.dumps(snap), file=sys.stderr)
+    return rc
 
 
 if __name__ == "__main__":

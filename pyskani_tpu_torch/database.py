@@ -17,9 +17,14 @@ Stores live in memory, or on disk (``Database(path)``, ``save``):
 sketches to the device chunk by chunk for each query
 (``engine/stream.py``); ``load`` reads every sketch onto the device.
 Tensors live on ``device``, which is the card unless the caller passes
-``device="cpu"``; there is no silent fallback to the CPU.
+``device="cpu"``; there is no silent fallback to the CPU.  Every
+4 <= k <= 32 works (``Database(k=...)``, and ``open`` of such a store);
+k outside that range raises ``ValueError``, as in the JAX package.
 
-Not ported yet (raises ``NotImplementedError``): k other than 15.
+With profiling on (``utils/profiling.py``), ``sketch``, ``sketch_many``
+and ``query`` time the JAX package's scopes (``sketch``, ``screen``,
+``chain``) and add to its counters (``bases_sketched``,
+``refs_screened``, ``screen_passed``, ``pairs_chained``).
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from .ops.sketch import (HostSketch, contig_budget_for, marker_budget_for,
                          sketch_genomes_device)
 from .params import (MIN_ANI_KEEP, CommandParams, SEARCH_ANI_CUTOFF_DEFAULT,
                      SketchParams)
+from .utils import profiling
 
 _Sequence = Union[str, bytes, bytearray, memoryview]
 
@@ -58,12 +64,6 @@ def _as_bytes(contig: _Sequence) -> bytes:
     if isinstance(contig, (bytes, bytearray)):
         return bytes(contig)
     return bytes(memoryview(contig))
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch engine yet (ROADMAP {item}); "
-        f"use the JAX package pyskani_tpu for it")
 
 
 class Sketch:
@@ -169,8 +169,6 @@ class Database:
     def __init__(self, path=None, *, compression: int = 125,
                  marker_compression: int = 1000, k: int = 15,
                  format: Optional[str] = None, device=None):
-        if k != 15:
-            _not_ported(f"k={k} (generic k sketching)", "A.13")
         self._device = _resolve_device(device)
         self._params = SketchParams(c=compression,
                                     marker_c=marker_compression, k=k)
@@ -195,8 +193,6 @@ class Database:
         if not markers_path.exists():
             raise OSError(2, f"Failed to open {markers_path}")
         params, markers = load_markers(markers_path)
-        if params.k != 15:
-            _not_ported(f"k={params.k} (generic k sketching)", "A.13")
         self = cls.__new__(cls)
         self._device = _resolve_device(device)
         self._params = params
@@ -253,8 +249,11 @@ class Database:
         self._sketch(name, [_as_bytes(c) for c in contigs], seed)
 
     def _sketch(self, name: str, data, seed: bool = True) -> Sketch:
-        host = sketch_genome_device(name, data, self._params, seed=seed,
-                                    device=self._device)
+        with profiling.scope("sketch", self._device):
+            host = sketch_genome_device(name, data, self._params, seed=seed,
+                                        device=self._device)
+        if profiling.enabled():
+            profiling.stats().add("bases_sketched", sum(map(len, data)))
         self._register_sketch(host)
         return Sketch(host, self._params.c)
 
@@ -264,8 +263,13 @@ class Database:
         ``named_contigs`` is an iterable of (name, [contig, ...])."""
         items = [(name, [_as_bytes(c) for c in contigs])
                  for name, contigs in named_contigs]
-        for host in sketch_genomes_device(items, self._params,
-                                          device=self._device):
+        with profiling.scope("sketch", self._device):
+            hosts = sketch_genomes_device(items, self._params,
+                                          device=self._device)
+        if profiling.enabled():
+            profiling.stats().add(
+                "bases_sketched", sum(len(c) for _, cs in items for c in cs))
+        for host in hosts:
             self._register_sketch(host)
 
     def _register_sketch(self, host: HostSketch) -> None:
@@ -351,8 +355,11 @@ class Database:
         interval of the ANI (skani's ``--ci``) into ``Hit.ci_low`` /
         ``Hit.ci_high``."""
         data = [_as_bytes(c) for c in contigs]
-        query = sketch_genome_device(name, data, self._params, seed=seed,
-                                     device=self._device)
+        with profiling.scope("sketch", self._device):
+            query = sketch_genome_device(name, data, self._params,
+                                         seed=seed, device=self._device)
+        if profiling.enabled():
+            profiling.stats().add("bases_sketched", sum(map(len, data)))
         learned = learned_ani if learned_ani is not None else \
             regression.use_learned_ani(self._params.c, False, False, median)
         cmd = CommandParams(
@@ -371,11 +378,16 @@ class Database:
         # phase 1: batched marker screen (all references at once)
         hi, lo, counts = self._marker_matrix()
         qdev = query.device
-        passes, _ = screen_batch(
-            qdev.markers_hi, qdev.markers_lo, qdev.n_markers,
-            hi, lo, counts, cmd.screen_val,
-            marker_k=self._params.marker_k, rescue_small=cmd.rescue_small)
-        passes = passes.cpu().numpy()
+        with profiling.scope("screen", self._device):
+            passes, _ = screen_batch(
+                qdev.markers_hi, qdev.markers_lo, qdev.n_markers,
+                hi, lo, counts, cmd.screen_val,
+                marker_k=self._params.marker_k,
+                rescue_small=cmd.rescue_small)
+            passes = passes.cpu().numpy()
+        if profiling.enabled():
+            profiling.stats().add("refs_screened", len(self._markers))
+            profiling.stats().add("screen_passed", int(passes.sum()))
         # shortlist in marker insertion order, deduplicated
         shortlist = list(dict.fromkeys(
             os.path.basename(self._markers[i].name)
@@ -415,44 +427,49 @@ class Database:
             mbucket = max(marker_budget_for(tl, self._params.marker_c),
                           qdev.marker_budget)
             qpad = repad_sketch(query, bucket, mbucket)
-        if block_names:
-            budgets = self._budgets_for(query, set(block_names))
-            bcap = max(1, min(16, (1 << 17) // budgets.max_fragments))
-            chunk = _pow2_chunk(len(block_names), cap=bcap)
-            if in_memory:
-                # the contig axis is cut to the block partition's bucket:
-                # every block-routed genome's contigs fit it
-                stack_block = stack if cb == stack.contig_lengths.shape[1] \
-                    else dataclasses.replace(
-                        stack, contig_lengths=stack.contig_lengths[:, :cb])
-                idx = np.array([names_all.index(rn) for rn in block_names],
-                               np.int64)
-                part = one_vs_many(stack_block, qpad, idx, cfg=cfg,
-                                   budgets=budgets, chunk=chunk)
-            else:
-                # streamed: only the shortlisted sketches, chunk by chunk
-                part = stream_one_vs_many(
-                    lambda rn: self._storage.load(rn, device="cpu"),
-                    block_names, qpad, cfg=cfg, budgets=budgets,
-                    seed_budget=bucket, marker_budget=mbucket,
-                    contig_budget=cb, chunk=chunk)
-            merge(part, block_names, budgets)
-        if fb_names:
-            # per-partition budgets: a giant here must not inflate the
-            # block path's fragment budget, nor the other way round
-            budgets = self._budgets_for(query, set(fb_names))
-            if in_memory:
-                refs = stack
-                idx = np.array([names_all.index(rn) for rn in fb_names],
-                               np.int64)
-            else:
-                refs = stack_sketches([self._storage.load(rn)
-                                       for rn in fb_names], bucket, mbucket)
-                idx = np.arange(len(fb_names))
-            part = one_vs_many_pairs(refs, qpad, idx, cfg=cfg,
-                                     budgets=budgets,
-                                     chunk=_pow2_chunk(len(idx), cap=4))
-            merge(part, fb_names, budgets)
+        with profiling.scope("chain", self._device):
+            if block_names:
+                budgets = self._budgets_for(query, set(block_names))
+                bcap = max(1, min(16, (1 << 17) // budgets.max_fragments))
+                chunk = _pow2_chunk(len(block_names), cap=bcap)
+                if in_memory:
+                    # the contig axis is cut to the block partition's bucket:
+                    # every block-routed genome's contigs fit it
+                    stack_block = stack \
+                        if cb == stack.contig_lengths.shape[1] else \
+                        dataclasses.replace(
+                            stack, contig_lengths=stack.contig_lengths[:, :cb])
+                    idx = np.array([names_all.index(rn) for rn in block_names],
+                                   np.int64)
+                    part = one_vs_many(stack_block, qpad, idx, cfg=cfg,
+                                       budgets=budgets, chunk=chunk)
+                else:
+                    # streamed: only the shortlisted sketches, chunk by chunk
+                    part = stream_one_vs_many(
+                        lambda rn: self._storage.load(rn, device="cpu"),
+                        block_names, qpad, cfg=cfg, budgets=budgets,
+                        seed_budget=bucket, marker_budget=mbucket,
+                        contig_budget=cb, chunk=chunk)
+                merge(part, block_names, budgets)
+            if fb_names:
+                # per-partition budgets: a giant here must not inflate the
+                # block path's fragment budget, nor the other way round
+                budgets = self._budgets_for(query, set(fb_names))
+                if in_memory:
+                    refs = stack
+                    idx = np.array([names_all.index(rn) for rn in fb_names],
+                                   np.int64)
+                else:
+                    refs = stack_sketches(
+                        [self._storage.load(rn) for rn in fb_names], bucket,
+                        mbucket)
+                    idx = np.arange(len(fb_names))
+                part = one_vs_many_pairs(refs, qpad, idx, cfg=cfg,
+                                         budgets=budgets,
+                                         chunk=_pow2_chunk(len(idx), cap=4))
+                merge(part, fb_names, budgets)
+        if profiling.enabled():
+            profiling.stats().add("pairs_chained", len(shortlist))
 
         key = "ani_median" if median else \
             "ani_robust" if robust else "ani_mean"

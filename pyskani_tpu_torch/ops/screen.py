@@ -2,9 +2,11 @@
 
 Port of the JAX package's ``ops/screen.py``: ONE query's marker set is
 intersected with a whole batch of reference marker sets at once.  A
-42-bit marker fits one int64 key (``hi << 32 | lo``), and marker sets are
-sorted and unique, so the shared count is a batched ``searchsorted`` of
-the query keys into each reference row, where the JAX package sorted the
+marker of up to 64 bits (marker_k <= 32) is one int64 key, its u64 bits
+``hi << 32 | lo`` with the sign bit flipped so that signed order is the
+unsigned (hi, lo) order of the stored sets.  Marker sets are sorted and
+unique, so the shared count is a batched ``searchsorted`` of the query
+keys into each reference row, where the JAX package sorted the
 concatenated pair arrays.
 """
 
@@ -13,14 +15,17 @@ from __future__ import annotations
 import torch
 
 from ..params import MIN_MARKERS_RESCUE
+from .sketch import I64_MIN
 
+# the key of (0xFFFFFFFF, 0xFFFFFFFF), which no canonical k-mer equals
 _SENT = (1 << 63) - 1
 
 
 def marker_keys(hi: torch.Tensor, lo: torch.Tensor, n) -> torch.Tensor:
-    """int64 keys ``hi << 32 | lo`` of a padded marker array (last axis),
-    with every slot at or past ``n`` set to a sentinel that sorts last."""
-    keys = (hi.to(torch.int64) << 32) | lo.to(torch.int64)
+    """int64 keys ``(hi << 32 | lo) ^ 2^63`` of a padded marker array
+    (last axis), in the unsigned (hi, lo) order, with every slot at or
+    past ``n`` set to a sentinel that sorts last."""
+    keys = ((hi.to(torch.int64) << 32) | lo.to(torch.int64)) ^ I64_MIN
     n = torch.as_tensor(n, device=keys.device)
     slot = torch.arange(keys.shape[-1], device=keys.device)
     valid = slot < n.unsqueeze(-1) if n.dim() else slot < n

@@ -4,7 +4,7 @@ Port of the JAX package's ``ops/sketch.py`` (``sketch_kernel``, the
 budget helpers, ``sketch_genome_device``, ``sketch_genomes_device``).
 The semantics are the same:
 all contigs of a genome are concatenated into one buffer, every position
-gets its canonical k=15 seed window and k=21 marker window, both are
+gets its canonical seed window (k) and marker window (marker_k), both are
 hashed with Wang's 64-bit mix and kept below ``(2^64-1)//c``, survivors
 are compacted into the seed and marker budgets, and the seed table is
 sorted by (kmer, contig, position) beside a (contig, position) view.
@@ -30,8 +30,12 @@ form and stays bit-equal on every output:
   whose tables are merged on the device (the JAX package merges them in
   numpy on the host).
 
-Only the fused k=15 / marker_k=21 path is ported; other k raise
-``NotImplementedError``.
+Every 4 <= k, marker_k <= 32 is supported, as in the JAX package.  The
+defaults (k=15, marker_k=21) take a fused path whose windows share their
+doubling steps (:func:`_rolling_windows`); any other pair builds each
+window by log-doubling (:func:`_windows_generic`).  Windows of up to 64
+bits ride int64, so their unsigned order is taken with the sign bit
+flipped (:func:`_ult`).
 """
 
 from __future__ import annotations
@@ -45,8 +49,10 @@ import torch
 from ..params import MIN_LENGTH_CONTIG, SketchParams
 
 U32_SENTINEL = 0xFFFFFFFF
+U32_MAX = (1 << 32) - 1
 I32_SENTINEL = 0x7FFFFFFF
 I64_MAX = (1 << 63) - 1
+I64_MIN = -(1 << 63)
 
 
 @dataclasses.dataclass
@@ -67,7 +73,8 @@ class DeviceSketch:
     p_positions: torch.Tensor  # int32 [S]
     p_contig_ids: torch.Tensor # int32 [S]
     p_own_mult: torch.Tensor   # int32 [S]
-    # marker sketch: sorted unique 42-bit canonical k-mers as (hi, lo)
+    # marker sketch: sorted unique canonical k-mers (up to 64 bits) as
+    # (hi, lo), in unsigned order
     markers_hi: torch.Tensor   # int64 [M] (u32 values)
     markers_lo: torch.Tensor   # int64 [M] (u32 values)
     n_seeds: torch.Tensor      # int32 []
@@ -164,9 +171,104 @@ def mm_hash64(key: torch.Tensor) -> torch.Tensor:
 
 
 def _below(h: torch.Tensor, thr: int) -> torch.Tensor:
-    """Unsigned ``h < thr`` for u64 bits in int64, with ``thr < 2^63``."""
-    assert 0 < thr <= I64_MAX
-    return (h >= 0) & (h < thr)
+    """Unsigned ``h < thr`` for u64 bits in int64, ``0 < thr < 2^64``
+    (``thr = 2^64 - 1`` at c = 1)."""
+    if thr <= I64_MAX:
+        return (h >= 0) & (h < thr)
+    return (h ^ I64_MIN) < thr + I64_MIN
+
+
+def _ult(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Unsigned ``a < b`` for u64 bits in int64: the sign bit flipped
+    makes the signed order the unsigned one."""
+    return (a ^ I64_MIN) < (b ^ I64_MIN)
+
+
+def _windows_generic(codes: torch.Tensor, k: int):
+    """(fwd, rev) k-mer windows ending at each position for any k <= 32,
+    on int64 lanes (u64 bits), along the last axis of ``codes``.
+
+    The JAX package's ``_windows_generic`` with its bit layout: forward
+    packs the newest base in the low bits, reverse packs its complement
+    in the high bits.  Power-of-two windows are built by doubling
+    (w_2n[i] joins w_n[i] and w_n[i-n]), and only those in the binary
+    decomposition of k are joined into the result, smallest first (each
+    older chunk goes above the forward window and below the reverse one,
+    so the order does not change the bits).  Each power is dropped once
+    the next is built; ``<<`` wraps mod 2^64 as u64 does."""
+    assert 1 <= k <= 32
+
+    def roll(x, s):
+        return torch.roll(x, s, -1)
+
+    c = codes.to(torch.int64)
+    f, r = c, 3 - c
+    del c
+    acc_f = acc_r = None
+    width, n = 0, 1
+    while True:
+        if k & n:
+            if acc_f is None:
+                acc_f, acc_r = f, r
+            else:
+                acc_f = (roll(f, width) << 2 * width) | acc_f
+                acc_r = (acc_r << 2 * n) | roll(r, width)
+            width += n
+        if 2 * n > k:
+            break
+        f = (roll(f, n) << 2 * n) | f
+        r = (r << 2 * n) | roll(r, n)
+        n *= 2
+    assert width == k
+    return acc_f, acc_r
+
+
+def _seed_and_marker_windows(codes: torch.Tensor, k: int, marker_k: int):
+    """(strand, seed key, seed hash, canonical marker) at every position
+    for the generic path, as the JAX ``sketch_kernel``'s generic branch:
+    the seed key is the canonical k-mer for 2k <= 32, else the hash's low
+    word with 0xFFFFFFFF remapped to 0xFFFFFFFE (the padding sentinel
+    stays unambiguous); ``marker_k == k`` reuses the seed's canonical
+    k-mer."""
+    f, r = _windows_generic(codes, k)
+    strand = _ult(f, r)
+    canon = torch.where(strand, f, r)
+    del f, r
+    h = mm_hash64(canon)
+    if marker_k == k:
+        mcanon = canon
+    else:
+        mf, mr = _windows_generic(codes, marker_k)
+        mcanon = torch.where(_ult(mf, mr), mf, mr)
+        del mf, mr
+    if 2 * k > 32:
+        lo = h & U32_MAX
+        canon = torch.where(lo == U32_SENTINEL, U32_SENTINEL - 1, lo)
+    return strand, canon, h, mcanon
+
+
+def _unique_markers(b: torch.Tensor, marker: torch.Tensor, marker_k: int):
+    """Sorted unique (genome, marker) pairs of the survivors, in the JAX
+    package's unsigned (hi, lo) order per genome.  Returns (genome ids,
+    hi words, lo words).
+
+    Markers of at most 42 bits (marker_k <= 21, the default path) take
+    one ``unique`` of ``b << 42 | marker``, as before generic k; wider
+    ones take two chained stable sorts (by the sign-flipped marker, then
+    by genome) and a run-start mask.  Both give the same bits where both
+    apply."""
+    if marker_k <= 21:
+        key = torch.unique((b << 42) | marker)
+        marker = key & ((1 << 42) - 1)
+        return key >> 42, marker >> 32, marker & 0xFFFFFFFF
+    flipped = marker ^ I64_MIN
+    order = torch.sort(flipped, stable=True).indices
+    order = order[torch.sort(b[order], stable=True).indices]
+    b, flipped = b[order], flipped[order]
+    first = torch.ones_like(b, dtype=torch.bool)
+    first[1:] = (b[1:] != b[:-1]) | (flipped[1:] != flipped[:-1])
+    marker = flipped[first] ^ I64_MIN
+    return b[first], _shr(marker, 32), marker & U32_MAX
 
 
 def _row_ranks(b: torch.Tensor, B: int) -> torch.Tensor:
@@ -223,15 +325,14 @@ def sketch_kernel_batch(packed_codes: torch.Tensor,
     the union of seed and marker survivors is clipped per row to the
     summed budgets, then seeds and markers to their own (one ``nonzero``
     over the stack and per-row ranks).  The seed table is one stable sort
-    by ``b<<32 | kmer``, the markers one ``unique`` of ``b<<42 | marker``.
-    Returns a dict of [B, ...] tensors (int64 for u32 values) with the
-    JAX keys; the four counts are int64 [B].
+    by ``b<<32 | kmer``, the markers deduped per genome in unsigned
+    (hi, lo) order (:func:`_unique_markers`).  Returns a dict of [B, ...]
+    tensors (int64 for u32 values) with the JAX keys; the four counts are
+    int64 [B].
     """
-    if k != 15 or marker_k != 21:
-        raise NotImplementedError(
-            f"k={k} / marker_k={marker_k}: the port implements the fused "
-            f"k=15 / marker_k=21 sketch only; generic k is not ported "
-            f"yet (ROADMAP A.13)")
+    if not (4 <= k <= 32 and 4 <= marker_k <= 32):
+        raise ValueError(f"k={k} / marker_k={marker_k} outside the "
+                         f"supported [4, 32] range")
     dev = packed_codes.device
     i64 = torch.int64
     thr = (2**64 - 1) // c
@@ -267,14 +368,20 @@ def sketch_kernel_batch(packed_codes: torch.Tensor,
         in_seq &= ii >= valid_floor.to(i64).reshape(-1)[at]
     del at
 
-    fwd, rev, mfwd, mrev = _rolling_windows(codes)
-    del codes
-    strand = fwd < rev
-    canon = torch.where(strand, fwd, rev)
-    del fwd, rev
-    h = mm_hash64(canon)
-    mcanon = torch.minimum(mfwd, mrev)
-    del mfwd, mrev
+    if k == 15 and marker_k == 21:
+        # the fused path: every window below 2^42, signed order is right
+        fwd, rev, mfwd, mrev = _rolling_windows(codes)
+        del codes
+        strand = fwd < rev
+        canon = torch.where(strand, fwd, rev)
+        del fwd, rev
+        h = mm_hash64(canon)
+        mcanon = torch.minimum(mfwd, mrev)
+        del mfwd, mrev
+    else:
+        strand, canon, h, mcanon = _seed_and_marker_windows(codes, k,
+                                                            marker_k)
+        del codes
     seed_mask = in_seq & (pos_in_contig >= k - 1) & _below(h, thr)
     del h
     mh = mm_hash64(mcanon)
@@ -338,10 +445,9 @@ def sketch_kernel_batch(packed_codes: torch.Tensor,
     m = torch.nonzero(u_marker).flatten()
     m_b = u_b[m]
     m = m[_row_ranks(m_b, B) < marker_budget]
-    m_key = torch.unique((u_b[m] << 42) | mcanon.reshape(-1)[u_src[m]])
-    mk_b = m_key >> 42
+    mk_b, m_hi, m_lo = _unique_markers(
+        u_b[m], mcanon.reshape(-1)[u_src[m]], marker_k)
     mk_rank = _row_ranks(mk_b, B)
-    marker = m_key & ((1 << 42) - 1)
 
     return dict(
         n_seeds=n_seeds,
@@ -354,9 +460,9 @@ def sketch_kernel_batch(packed_codes: torch.Tensor,
         p_contig_ids=by_pos(s_cid, I32_SENTINEL),
         p_own_mult=mult(by_pos(own, 0)),
         n_markers=torch.bincount(mk_b, minlength=B),
-        markers_hi=_scatter_rows(mk_b, mk_rank, marker >> 32, B,
+        markers_hi=_scatter_rows(mk_b, mk_rank, m_hi, B,
                                  marker_budget, U32_SENTINEL),
-        markers_lo=_scatter_rows(mk_b, mk_rank, marker & 0xFFFFFFFF, B,
+        markers_lo=_scatter_rows(mk_b, mk_rank, m_lo, B,
                                  marker_budget, U32_SENTINEL),
         n_seeds_want=seed_mask.sum(1),
         n_markers_want=marker_mask.sum(1),
@@ -457,7 +563,6 @@ def marker_budget_for(total_len: int, marker_c: int) -> int:
 # per-call sequence budget: a kernel call holds several genome-length
 # int64 intermediates, so genomes above it stream through chunked calls
 GIANT_SKETCH_BUFFER = 1 << 27
-U32_MAX = (1 << 32) - 1
 
 
 @dataclasses.dataclass
@@ -586,7 +691,10 @@ def _sketch_genome_chunked(name: str, kept: List[bytes], params: SketchParams,
         pos_l.append(out["positions"][:ns].to(torch.int64) + piece_off[pidx])
         cid_l.append(piece_cid[pidx])
         str_l.append(out["strands"][:ns])
-        mark_l.append((out["markers_hi"][:nm] << 32) | out["markers_lo"][:nm])
+        # markers as u64 bits with the sign flipped: signed order is the
+        # unsigned (hi, lo) order
+        mark_l.append(((out["markers_hi"][:nm] << 32) |
+                       out["markers_lo"][:nm]) ^ I64_MIN)
 
     kmer, pos, cid, strand = (torch.cat(x) for x in
                               (kmer_l, pos_l, cid_l, str_l))
@@ -600,7 +708,7 @@ def _sketch_genome_chunked(name: str, kept: List[bytes], params: SketchParams,
                                            return_counts=True)
     own = torch.empty_like(kmer_s, dtype=torch.int32)
     own[order] = cnt[inv].to(torch.int32)
-    markers = torch.unique(torch.cat(mark_l))
+    markers = torch.unique(torch.cat(mark_l)) ^ I64_MIN
 
     n, m = kmer.shape[0], markers.shape[0]
     sb = seed_budget or seed_budget_for(total, params.c)
@@ -622,7 +730,7 @@ def _sketch_genome_chunked(name: str, kept: List[bytes], params: SketchParams,
         p_positions=pad_to(pos[p_order].to(i32), sb, I32_SENTINEL),
         p_contig_ids=pad_to(cid[p_order].to(i32), sb, I32_SENTINEL),
         p_own_mult=pad_to(own[p_order], sb, 0),
-        markers_hi=pad_to(markers >> 32, mb, U32_SENTINEL),
+        markers_hi=pad_to(_shr(markers, 32), mb, U32_SENTINEL),
         markers_lo=pad_to(markers & U32_MAX, mb, U32_SENTINEL),
         n_seeds=scalar(n), n_markers=scalar(m),
         contig_lengths=contig_lengths, n_contigs=scalar(len(kept)),

@@ -4,11 +4,12 @@ package's CLI.
 The same FASTA files go through ``pyskani_tpu.cli`` and
 ``pyskani_tpu_torch.cli --device cpu``: the same rows, and every number
 within 0.01 of the JAX package's printed value (both print 2 decimals, so
-a last-ulp difference may flip the rounding).  ``--mesh`` and k other
-than 15 are not ported yet and exit with code 2, naming their ROADMAP
-items; without CUDA the default device refuses to run.
+a last-ulp difference may flip the rounding), at the default k and at
+``-k 16``.  ``--mesh`` is not ported yet and exits with code 2, naming
+its ROADMAP item; without CUDA the default device refuses to run.
 """
 
+import dataclasses
 import gzip
 import os
 
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from conftest import mutate, random_genome
+import pyskani_tpu.oracle.chain as jax_chain_config
 from pyskani_tpu import cli as jax_cli
 from pyskani_tpu_torch import cli
 
@@ -146,10 +148,38 @@ NOT_PORTED = {
                       "A.12"),
     "search_mesh": (["search", "-d", "DB", "base.fa", "--mesh", "2x1"],
                     "A.12"),
-    "dist_k": (["dist", "-q", "base.fa", "-r", "mut3.fa", "-k", "16"],
-               "A.13"),
-    "triangle_k": (["triangle", "base.fa", "mut3.fa", "-k", "16"], "A.13"),
 }
+
+
+def test_dist_k16_matches_jax_cli(fasta, capsys):
+    argv = ["dist", "-q", fasta["mut1.fa.gz"], fasta["mut3.fa"], "-r",
+            fasta["base.fa"], fasta["draft.fa"], fasta["other.fa"],
+            "--learned-ani", "no", "-k", "16"]
+    rc_w, want, _ = _run(jax_cli.main, argv, capsys)
+    rc, got, _ = _run(cli.main, argv + ["--device", "cpu"], capsys)
+    assert rc == rc_w == 0
+    _assert_same_output(got, want)
+    assert len(got.strip().splitlines()) == 1 + 4
+
+
+def test_triangle_k16_matches_jax_cli(fasta, capsys, monkeypatch):
+    """``triangle -k 16`` chains with k = 16, as ``Database.query`` does.
+    The JAX CLI's triangle builds ``ChainConfig()`` (k = 15) whatever
+    ``-k`` says, so it runs here with its ChainConfig bound to k = 16
+    (ANI exponent 1/16, intervals extended by 15)."""
+    genomes = [fasta[n] for n in ("base.fa", "mut1.fa.gz", "mut3.fa",
+                                  "draft.fa", "other.fa")]
+    real = jax_chain_config.ChainConfig
+    monkeypatch.setattr(
+        jax_chain_config, "ChainConfig",
+        lambda **kw: dataclasses.replace(real(**kw), k=16, extend_right=15))
+    rc_w, want, _ = _run(jax_cli.main, ["triangle", *genomes, "-k", "16"],
+                         capsys)
+    rc, got, _ = _run(cli.main, ["triangle", *genomes, "-k", "16",
+                                 "--device", "cpu"], capsys)
+    assert rc == rc_w == 0
+    _assert_same_output(got, want)
+    assert len(got.strip().splitlines()) == 1 + 6
 
 
 @pytest.mark.parametrize("case", list(NOT_PORTED))

@@ -5,8 +5,7 @@ and aligned fractions within 1e-6.  A store sketched by the JAX package
 and carried across with ``convert`` gives the same hits.  References past
 the packed block-grid range, queries of 2^30 bp or more and genomes above
 the sketch buffer take the full-range per-pair path or chunked sketching,
-as in the JAX package.  k other than 15, not ported yet, raises
-``NotImplementedError``.
+as in the JAX package.  Other k: ``tests/test_torch_generic_k.py``.
 """
 
 import dataclasses
@@ -164,13 +163,26 @@ def test_empty_database_and_api_surface():
         db._storage.load("nope")
 
 
-@pytest.mark.parametrize("call", ["k"])
-def test_not_ported_paths_raise(call, tmp_path):
-    calls = {
-        "k": lambda: pyskani_tpu_torch.Database(k=16, device="cpu"),
-    }
-    with pytest.raises(NotImplementedError, match="not ported|to port"):
-        calls[call]()
+def test_package_surface_matches_jax():
+    """``SKANI_VERSION`` and ``__build__`` as the JAX package exports them
+    (backend ``torch/cuda``), and the typed surface shipped beside them."""
+    import ast
+    import os
+    assert pyskani_tpu_torch.SKANI_VERSION == pyskani_tpu.SKANI_VERSION
+    assert pyskani_tpu_torch.__build__ == dict(
+        pyskani_tpu.__build__, backend="torch/cuda")
+    assert set(pyskani_tpu_torch.__all__) == set(pyskani_tpu.__all__)
+    pkg = os.path.dirname(pyskani_tpu_torch.__file__)
+    assert os.path.exists(os.path.join(pkg, "py.typed"))
+    with open(os.path.join(pkg, "__init__.pyi")) as f:
+        stub = ast.parse(f.read())
+    classes = {n.name: {m.name for m in n.body
+                        if isinstance(m, ast.FunctionDef)}
+               for n in stub.body if isinstance(n, ast.ClassDef)}
+    for name, methods in classes.items():
+        cls = getattr(pyskani_tpu_torch, name)
+        assert all(hasattr(cls, m) for m in methods), name
+    assert set(classes) == {"Sketch", "Hit", "Database"}
 
 
 @pytest.mark.parametrize("qi", [0, 1])

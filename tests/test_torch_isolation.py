@@ -89,7 +89,9 @@ def test_port_imports_with_jax_blocked():
 def test_new_modules_are_checked():
     mods = _modules()
     for m in ("pyskani_tpu_torch.ops.prng", "pyskani_tpu_torch.engine.stream",
-              "pyskani_tpu_torch.db.storage"):
+              "pyskani_tpu_torch.db.storage",
+              "pyskani_tpu_torch.utils.profiling",
+              "pyskani_tpu_torch.io.native"):
         assert m in mods
 
 

@@ -120,17 +120,57 @@ def test_hash_matches_numpy_u64():
 
 
 def test_unsupported_k_and_giants_raise():
-    """k other than 15 is not ported; a giant genome streams through
-    chunked calls unless the buffer cannot hold a k-mer overlap."""
+    """k outside [4, 32] raises ``ValueError``, as in the JAX package; a
+    giant genome streams through chunked calls unless the buffer cannot
+    hold a k-mer overlap."""
     contigs = [b"ACGT" * 100]
     packed, starts = _kernel_inputs(contigs)
-    with pytest.raises(NotImplementedError, match="k=16"):
+    with pytest.raises(ValueError, match="k=33"):
         tsk.sketch_kernel(torch.from_numpy(packed), torch.from_numpy(starts),
-                          1, k=16, marker_k=21, c=125, marker_c=1000,
+                          1, k=33, marker_k=21, c=125, marker_c=1000,
                           seed_budget=1024, marker_budget=512)
     with pytest.raises(ValueError, match="too small"):
         tsk.sketch_genome_device("g", contigs, P, max_buffer=64,
                                  device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(compression=1),
+                                dict(marker_compression=1)],
+                         ids=["compression", "marker_compression"])
+def test_compression_one_matches_jax(kw):
+    """c = 1 keeps every hash but all-ones (threshold 2^64 - 1, above the
+    int64 range): the sketch is bit-equal to the JAX package's and a
+    20 kbp genome queried against itself gives JAX's hits (count,
+    identity and both fractions within 1e-6)."""
+    from pyskani_tpu.database import Database as JaxDatabase
+    from pyskani_tpu_torch import Database
+    from pyskani_tpu_torch.params import SketchParams as TorchParams
+
+    rng = np.random.default_rng(20)
+    g = random_genome(rng, 20_000)
+    params = dict(c=kw.get("compression", 125),
+                  marker_c=kw.get("marker_compression", 1000))
+    want = jsk.sketch_genome_device("g", [g], SketchParams(**params),
+                                    length_bucket=L)
+    got = tsk.sketch_genome_device("g", [g], TorchParams(**params),
+                                   length_bucket=L, device="cpu")
+    got_np = convert.sketch_to_numpy(got)
+    for f, w in jax.device_get(vars(want.device)).items():
+        np.testing.assert_array_equal(got_np[f], np.asarray(w), err_msg=f)
+    n = int(got.device.n_seeds if "compression" in kw
+            else got.device.n_markers)
+    assert n >= 20_000 - 21
+    hits = []
+    for db in (JaxDatabase(**kw), Database(device="cpu", **kw)):
+        db.sketch("g", g)
+        hits.append(db.query("g", g, learned_ani=False))
+    want_hits, got_hits = hits
+    assert len(got_hits) == len(want_hits)
+    for h, w in zip(got_hits, want_hits):
+        assert h.reference_name == w.reference_name
+        for attr in ("identity", "query_fraction", "reference_fraction"):
+            assert getattr(h, attr) == pytest.approx(getattr(w, attr),
+                                                     abs=1e-6), attr
 
 
 GIANT_CONTIGS = (700_000, 300_000, 400_000)   # the first is split

@@ -91,7 +91,24 @@ Phases (any failure exits non-zero and prints no result line):
              saved and opened (2 streamed queries equal the memory
              store's) and ``cli.main(["dist", ..., "-k", "21"])`` rows
              equal the library's;
-10. kernels — every DP grid the search, fallback, giant, triangle, disk
+10. mesh    — the multi-device layer (``parallel/``).  (a) one NCCL rank
+             in this process (a FileStore rendezvous): the sharded search
+             of the search phase's 8 queries on its memory store and on
+             ``open`` of the store saved (streamed in 8 chunks), hits
+             equal; one [512, 8] step whose every plane equals
+             ``chain_pairs`` on the passing pairs (integers equal, floats
+             within 1e-6, 0 elsewhere); ``sharded_triangle`` of the
+             triangle phase's family within 1e-6 of
+             ``engine.batch.triangle``.  (b) four spawned ranks on this
+             card, collectives over gloo through host memory (NCCL refuses
+             two ranks on one card): the search on the saved store at
+             2 x 2 and 4 x 1, ``sharded_triangle`` and ``ring_triangle``
+             (blocks of 16: one rank's 64-genome block would pass the
+             pair-grid limit); every rank on CUDA, every rank launching
+             the DP, every result equal to (a)'s.  (c) with two cards or
+             more, the same on NCCL, one card per rank (a line says when
+             it did not run).  Walls printed beside the card line;
+11. kernels — every DP grid the search, fallback, giant, triangle, disk
              and generic_k phases fed the kernel, random tie-heavy grids
              and edge grids (PF = 100, bands 0/1/25/32, anchors resuming
              after 40 invalid columns, empty rows, a tie across two
@@ -110,9 +127,10 @@ Phases (any failure exits non-zero and prints no result line):
 The chain-DP kernel's launch count is reset just before the main-path
 calls of each phase (the search's queries, the fallback's queries, the
 giant query, each of the three triangles, each timed run of the disk
-phase, the k = 21 queries, streamed queries and CLI) and read just
-after; each must launch it, the per-pair path for every fallback query,
-and the family triangle exactly 3 times.
+phase, the k = 21 queries, streamed queries and CLI, each part of the
+mesh phase in every rank) and read just after; each must launch it, the
+per-pair path for every fallback query, and the family triangle exactly
+3 times.  The kernels line counts every rank's launches.
 
 The last three lines are the card line, one ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
@@ -427,10 +445,11 @@ class Recorder:
     the kernel's launches per phase and path.
 
     It wraps ``chain_dp`` as ``ops/chain.py`` calls it (a clone of each
-    CUDA grid while ``keep`` is set) and ``chain_block`` / ``chain_pairs``
-    / ``chain_triangle`` as ``engine/batch.py`` and ``engine/stream.py``
-    call them (the wrapper's own launch count before and after each
-    call)."""
+    CUDA grid while ``keep`` is set; in a phase of ``distinct``, only the
+    first grid of each path and shape) and ``chain_block`` /
+    ``chain_pairs`` / ``chain_triangle`` as ``engine/batch.py``,
+    ``engine/stream.py`` and ``parallel/dist.py`` call them (the
+    wrapper's own launch count before and after each call)."""
 
     PATHS = ("chain_block", "chain_pairs", "chain_triangle")
 
@@ -439,14 +458,18 @@ class Recorder:
         from pyskani_tpu_torch.engine import stream as stream_mod
         from pyskani_tpu_torch.ops import chain as chain_mod
         from pyskani_tpu_torch.ops import chain_dp as dp_mod
+        from pyskani_tpu_torch.parallel import dist as dist_mod
         self.grids = []          # (phase, path, (qpos, rpos, meta))
         self.launches = {}       # (phase, path) -> launches
         self.phase = None
         self.keep = True
+        self.distinct = set()    # phases that keep one grid per shape
+        self._seen = set()
         self._path = [None]
         self._mods = (batch_mod, chain_mod, dp_mod)
         self._wrapped = [(batch_mod, n) for n in self.PATHS] + \
-            [(stream_mod, "chain_block")]
+            [(stream_mod, "chain_block"), (dist_mod, "chain_block"),
+             (dist_mod, "chain_pairs")]
         self._real = {}
 
     def __enter__(self):
@@ -454,7 +477,10 @@ class Recorder:
         real_dp = self._real["chain_dp"] = chain_mod.chain_dp
 
         def record_dp(q, r, m, cfg):
-            if self.keep and q.is_cuda:
+            key = (self.phase, self._path[-1], tuple(q.shape))
+            if self.keep and q.is_cuda and key not in self._seen:
+                if self.phase in self.distinct:
+                    self._seen.add(key)
                 self.grids.append((self.phase, self._path[-1],
                                    (q.clone(), r.clone(), m.clone())))
             return real_dp(q, r, m, cfg)
@@ -1602,6 +1628,323 @@ def phase_disk(result, torch, dev, rec, db, queries, fb_db, fb_queries,
     return total
 
 
+# mesh phase: references per rank per streamed chunk (the 512-genome store
+# streams in 8 chunks at 1 x 1, 4 at 2 x 2 and 2 at 4 x 1), the spawned
+# ranks of part (b) and their time limit
+MESH = dict(stream_refs=64, ranks=4, timeout=900)
+
+
+def _hit_rows(all_hits):
+    return [[(h.reference_name, h.identity, h.query_fraction,
+              h.reference_fraction) for h in hits] for hits in all_hits]
+
+
+def _rows_diff(got, want, label) -> float:
+    """Max |diff| of two _hit_rows lists that name the same references in
+    the same order."""
+    if [[r[0] for r in q] for q in got] != [[r[0] for r in q] for q in want]:
+        raise AssertionError(f"{label}: hits differ in names")
+    return max([0.0] + [abs(a - b) for g, w in zip(got, want)
+                        for rg, rw in zip(g, w)
+                        for a, b in zip(rg[1:], rw[1:])])
+
+
+def _tri_diff(got, want, keys=FLOAT_KEYS, ints=True) -> float:
+    """Max |diff| over ``keys`` of two triangles (ri, qi, dict); the pair
+    order, and with ``ints`` every integer key, must agree exactly."""
+    if not (np.array_equal(got[0], want[0]) and
+            np.array_equal(got[1], want[1])):
+        raise AssertionError("triangles differ in pair order")
+    if ints:
+        for k, v in want[2].items():
+            if not np.issubdtype(np.asarray(v).dtype, np.floating) and \
+                    not np.array_equal(np.asarray(got[2][k]), np.asarray(v)):
+                raise AssertionError(f"triangles differ in {k}")
+    return max(float(np.abs(np.asarray(got[2][k], np.float64) -
+                            np.asarray(want[2][k], np.float64)).max())
+               for k in keys)
+
+
+def mesh_rank(store, queries, fam, shapes, ring):
+    """One rank of the mesh phase's parts (b) and (c), spawned by
+    ``parallel.dist.launch`` on its card: the sharded search of the saved
+    store at each mesh shape of the world, then ``sharded_triangle`` and
+    (with ``ring``) ``ring_triangle`` of the family's sketches.  The
+    first DP grid of each path and shape is kept and, after the run, held
+    bit-equal to ``chain_dp_plain``.  Returns the results, the devices
+    the rank's sketches lay on, its chain-DP launches and the grids it
+    checked."""
+    import torch
+
+    from pyskani_tpu_torch.ops import chain_dp as dp_mod
+    from pyskani_tpu_torch.ops.chain import ChainConfig
+
+    out = dict(hits={}, chunks={}, devices=set())
+    with Recorder() as rec:
+        rec.phase = "mesh"
+        rec.distinct.add("mesh")
+        dp_mod.chain_dp.launches = 0
+        _mesh_rank_run(out, store, queries, fam, shapes, ring)
+        out["launches"] = dp_mod.chain_dp.launches
+    out["grids"] = _hold_plain(torch, rec.grids, ChainConfig())
+    return out
+
+
+def _mesh_rank_run(out, store, queries, fam, shapes, ring):
+    """The main path of one spawned rank, its wall into ``out``."""
+    import torch
+
+    from pyskani_tpu_torch import Database, convert
+    from pyskani_tpu_torch.engine import batch as eb
+    from pyskani_tpu_torch.ops.chain import ChainConfig
+    from pyskani_tpu_torch.parallel import dist as pdist
+    from pyskani_tpu_torch.parallel.mesh import make_mesh
+    from pyskani_tpu_torch.parallel.search import ShardedDatabaseSearch
+
+    t0 = time.perf_counter()
+    for shape in shapes:
+        mesh = make_mesh(*shape)
+        s = ShardedDatabaseSearch(Database.open(store, device=mesh.device),
+                                  mesh, learned_ani=False,
+                                  stream_refs_per_device=MESH["stream_refs"])
+        out["hits"][shape] = _hit_rows(s.query_many(queries))
+        out["chunks"][shape] = len(s._ref_name_chunks)
+    cfg = ChainConfig()
+    sketches = [convert.sketch_from_numpy(f, n, cn, L, device=mesh.device)
+                for n, f, cn, L in fam]
+    batch = eb.stack_sketches(sketches)
+    budgets = eb.default_budgets(sketches, batch, cfg)
+    out["devices"] |= {str(batch.kmers.device), str(mesh.device)}
+    out["sharded"] = pdist.sharded_triangle(batch, mesh, cfg=cfg,
+                                            budgets=budgets)
+    if ring:
+        out["ring"] = pdist.ring_triangle(batch, mesh, cfg=cfg,
+                                          budgets=budgets)
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+
+
+def _hold_plain(torch, grids, cfg) -> list:
+    """Hold each recorded (phase, path, grid) bit-equal to
+    ``chain_dp_plain``; returns the (path, [R, PF]) of each."""
+    from pyskani_tpu_torch.ops.chain_dp import chain_dp, chain_dp_plain
+    for _, path, (q, r, m) in grids:
+        s_k, t_k = chain_dp(q, r, m, cfg)
+        s_p, t_p = chain_dp_plain(q, r, m, cfg)
+        if not (torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+                and torch.equal(t_k, t_p)):
+            raise AssertionError(f"chain_dp kernel != plain on a mesh "
+                                 f"{path} grid {tuple(q.shape)}")
+    return [(path, tuple(g[0].shape)) for _, path, g in grids]
+
+
+def _check_ranks(ranks, want_hits, want_tri, label) -> dict:
+    """Parts (b) and (c): every rank on CUDA, every rank launched the DP
+    and held a ``chain_pairs`` (search) and a ``chain_block`` (triangle)
+    grid bit-equal to the plain version, every rank's results equal part
+    (a)'s (hits and the sharded triangle within 1e-6, integers of the
+    triangle equal; the ring's estimators within 1e-6 of
+    ``engine.batch.triangle``)."""
+    diffs = {}
+    for r, res in enumerate(ranks):
+        if not res["devices"] or not all(d.startswith("cuda")
+                                         for d in res["devices"]):
+            raise AssertionError(f"{label} rank {r} ran on {res['devices']}")
+        if res["launches"] < 1:
+            raise AssertionError(f"{label} rank {r} never launched the "
+                                 f"chain-DP kernel")
+        paths = {p for p, _ in res["grids"]}
+        if not {"chain_pairs", "chain_block"} <= paths:
+            raise AssertionError(f"{label} rank {r} checked grids of "
+                                 f"{paths} only")
+        for shape, hits in res["hits"].items():
+            key = f"search {shape[0]}x{shape[1]}"
+            diffs[key] = max(diffs.get(key, 0.0),
+                             _rows_diff(hits, want_hits, f"{label} {key}"))
+        diffs["sharded"] = max(diffs.get("sharded", 0.0), _tri_diff(
+            res["sharded"], want_tri["sharded"]))
+        if "ring" in res:
+            diffs["ring"] = max(diffs.get("ring", 0.0), _tri_diff(
+                res["ring"], want_tri["single"], ints=False))
+    for k, v in diffs.items():
+        if v > 1e-6:
+            raise AssertionError(f"{label} {k}: max |diff| {v} vs part (a)")
+    return diffs
+
+
+def phase_mesh(result, torch, dev, card, rec, db, queries, family):
+    """The multi-device layer (``parallel/``): (a) one NCCL rank in this
+    process: ``ShardedDatabaseSearch`` on the memory search store and on
+    ``open`` of it saved (streamed in 8 chunks), every plane of one step
+    against ``chain_pairs``, and ``sharded_triangle`` of the family
+    against ``engine.batch.triangle``, the first DP grid of each path and
+    shape recorded (phase "mesh") for the kernels phase; (b) four spawned
+    ranks on this card, collectives over gloo through host memory: the
+    search on the saved store at 2 x 2 and 4 x 1, ``sharded_triangle``
+    and ``ring_triangle``, each rank holding its own grids of each shape
+    against the plain version; (c) with two cards or more, NCCL with one
+    card per rank.  Returns the chain-DP launches of every rank's main
+    path."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from pyskani_tpu_torch import Database, convert
+    from pyskani_tpu_torch.engine import batch as eb
+    from pyskani_tpu_torch.ops import chain_dp as dp_mod
+    from pyskani_tpu_torch.ops.chain import ChainConfig, chain_pairs
+    from pyskani_tpu_torch.parallel import dist as pdist
+    from pyskani_tpu_torch.parallel.mesh import make_mesh
+    from pyskani_tpu_torch.parallel.search import ShardedDatabaseSearch
+
+    cfg = ChainConfig()
+    named = [(n, [q]) for n, q in queries]
+    sketches = family["sketches"]
+    fam = [(s.name, convert.sketch_to_numpy(s), s.contig_names, s.lengths)
+           for s in sketches]
+    single = (*np.triu_indices(len(sketches), k=1), family["out"])
+    rep = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        store = os.path.join(tmp, "store")
+        db.save(store)
+
+        # ---- (a) one NCCL rank in this process ----
+        tdist.init_process_group(
+            "nccl", store=tdist.FileStore(os.path.join(tmp, "rdv"), 1),
+            world_size=1, rank=0)
+        try:
+            mesh = make_mesh(1, 1)
+            if not (mesh.distributed and mesh.transport.type == "cuda"):
+                raise AssertionError(f"(a) is not an NCCL mesh: {mesh}")
+            rec.phase = "mesh"
+            rec.distinct.add("mesh")
+            dp_mod.chain_dp.launches = 0
+            t0 = time.perf_counter()
+            s_mem = ShardedDatabaseSearch(db, mesh, learned_ani=False)
+            mem = _hit_rows(s_mem.query_many(named))
+            s_open = ShardedDatabaseSearch(
+                Database.open(store), mesh, learned_ani=False,
+                stream_refs_per_device=MESH["stream_refs"])
+            opened = _hit_rows(s_open.query_many(named))
+            s8 = ShardedDatabaseSearch(db, mesh, learned_ani=False,
+                                       queries_per_device=len(named))
+            qblock = s8._query_block(named)
+            planes = s8._step(s8._refs, qblock)
+            batch = eb.stack_sketches(sketches)
+            budgets = eb.default_budgets(sketches, batch, cfg)
+            sharded = pdist.sharded_triangle(batch, mesh, cfg=cfg,
+                                             budgets=budgets)
+            torch.cuda.synchronize()
+            wall_a = time.perf_counter() - t0
+            launches_a = dp_mod.chain_dp.launches
+        finally:
+            rec.phase = None
+            tdist.destroy_process_group()
+        d_open = _rows_diff(opened, mem, "(a) open vs memory")
+        n_chunks = len(s_open._ref_name_chunks)
+        if n_chunks < 2 or sum(map(len, mem)) == 0:
+            raise AssertionError(f"(a): {n_chunks} chunks, hits {mem}")
+        # every plane of the step against chain_pairs on the passing pairs
+        # (in chunks of 16, not the step's 4)
+        sp = planes["screen_pass"]
+        pid = torch.nonzero(sp.reshape(-1)).reshape(-1)
+        Q = sp.shape[1]
+        rec.phase, rec.keep = "mesh_checks", False
+        try:
+            ref = [chain_pairs(eb.take_sketch(s8._refs, pid[i:i + 16] // Q),
+                               eb.take_sketch(qblock, pid[i:i + 16] % Q),
+                               cfg=cfg, budgets=s8._budgets)
+                   for i in range(0, pid.shape[0], 16)]
+        finally:
+            rec.phase, rec.keep = None, True
+        d_planes = 0.0
+        for k in ref[0]:
+            want = torch.cat([r[k] for r in ref])
+            got = planes[k].reshape(-1)
+            if got[~sp.reshape(-1)].any():
+                raise AssertionError(f"(a) plane {k}: a pair that did not "
+                                     f"pass the screen is not 0")
+            if want.is_floating_point():
+                d_planes = max(d_planes, float(
+                    (got[pid] - want).abs().max()))
+            elif not torch.equal(got[pid], want):
+                raise AssertionError(f"(a) plane {k} != chain_pairs")
+        if int(planes["n_chained"][0]) != pid.shape[0]:
+            raise AssertionError("(a) n_chained != passing pairs")
+        d_tri = _tri_diff(sharded, single, ints=False)
+        if max(d_open, d_planes, d_tri) > 1e-6:
+            raise AssertionError(f"(a): open vs memory {d_open}, planes vs "
+                                 f"chain_pairs {d_planes}, sharded triangle "
+                                 f"vs engine.batch.triangle {d_tri}")
+        rep["a"] = dict(wall_s=wall_a, launches=launches_a, chunks=n_chunks,
+                        pairs_chained=int(pid.shape[0]),
+                        open_vs_memory=d_open, planes_vs_chain_pairs=d_planes,
+                        sharded_vs_triangle=d_tri,
+                        grids=[(pa, tuple(g[0].shape))
+                               for ph, pa, g in rec.grids if ph == "mesh"])
+        log(f"[mesh] (a) 1 NCCL rank: memory and open ({n_chunks} chunks) "
+            f"searches, one [{sp.shape[0]}, {Q}] step ({pid.shape[0]} pairs "
+            f"chained, every plane vs chain_pairs: max |diff| "
+            f"{d_planes:.3g}, integers equal), sharded_triangle vs "
+            f"engine.batch.triangle max |diff| {d_tri:.3g}; wall "
+            f"{wall_a:.2f} s, chain-DP launches {launches_a}, DP grids "
+            f"recorded for the kernels phase {rep['a']['grids']} ({card})")
+        want_tri = dict(sharded=sharded, single=single)
+
+        # ---- (b) four ranks on this card, gloo through host memory ----
+        t0 = time.perf_counter()
+        ranks = pdist.launch(mesh_rank, MESH["ranks"],
+                             (store, named, fam, [(2, 2), (4, 1)], True),
+                             device=f"cuda:{dev.index or 0}",
+                             timeout=MESH["timeout"])
+        wall_b = time.perf_counter() - t0
+        diffs = _check_ranks(ranks, opened, want_tri, "(b)")
+        launches_b = sum(r["launches"] for r in ranks)
+        rep["b"] = dict(wall_s=wall_b, rank_wall_s=[r["wall_s"] for r in ranks],
+                        launches=[r["launches"] for r in ranks],
+                        chunks={f"{k[0]}x{k[1]}": v
+                                for k, v in ranks[0]["chunks"].items()},
+                        max_diff=diffs, grids=[r["grids"] for r in ranks])
+        log(f"[mesh] (b) {MESH['ranks']} gloo ranks on one card: searches "
+            f"at 2x2 and 4x1 ({rep['b']['chunks']} chunks), sharded_triangle "
+            f"and ring_triangle equal part (a) (max |diff| {diffs}); each "
+            f"rank's DP grids of each shape bit-equal to chain_dp_plain "
+            f"(rank 0: {ranks[0]['grids']}); wall "
+            f"{wall_b:.2f} s (ranks {[round(r['wall_s'], 2) for r in ranks]} "
+            f"s after start-up), chain-DP launches {rep['b']['launches']} "
+            f"({card})")
+
+        # ---- (c) one card per rank over NCCL ----
+        n = torch.cuda.device_count()
+        launches_c = 0
+        if n >= 2:
+            world = min(4, n)
+            shapes = [(2, 2), (4, 1)] if world == 4 else \
+                [(world, 1), (1, world)]
+            t0 = time.perf_counter()
+            ranks = pdist.launch(mesh_rank, world,
+                                 (store, named, fam, shapes, True),
+                                 device="cuda", timeout=MESH["timeout"])
+            wall_c = time.perf_counter() - t0
+            diffs = _check_ranks(ranks, opened, want_tri, "(c)")
+            launches_c = sum(r["launches"] for r in ranks)
+            rep["c"] = dict(world=world, wall_s=wall_c, max_diff=diffs,
+                            launches=[r["launches"] for r in ranks],
+                            grids=[r["grids"] for r in ranks])
+            log(f"[mesh] (c) {world} NCCL ranks, one card each: equal part "
+                f"(a) (max |diff| {diffs}); wall {wall_c:.2f} s, chain-DP "
+                f"launches {rep['c']['launches']} ({card})")
+        else:
+            log(f"[mesh] (c) did not run: {n} CUDA device (NCCL with one "
+                f"card per rank needs 2 or more)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result["mesh"] = rep
+    return launches_a + launches_b + launches_c
+
+
 def _kernel_stack(torch, seqs, dev):
     """``sketch_kernel_batch`` inputs for a stack of one-contig genomes:
     packed codes [B, L//4] and starts [B, 9] on ``dev``."""
@@ -2133,6 +2476,11 @@ def phase_kernels(result, torch, dev, rec, launches):
     counts = {}
     for label, _, _ in cases[:n_recorded]:
         counts[label] = counts.get(label, 0) + 1
+    # the mesh's own grids: the sharded step's and the sharded triangle's
+    for path in ("chain_pairs", "chain_block"):
+        if not counts.get(f"mesh/{path}"):
+            raise AssertionError(f"no mesh {path} grid was held against "
+                                 f"the plain version")
     log(f"[kernels] chain_dp bit-equal to its plain version on "
         f"{len(cases)} grids (recorded {counts}, 2 tie-heavy, edges "
         f"{list(EDGES)}, high_positions); plain version seconds per kind "
@@ -2228,14 +2576,17 @@ def main() -> int:
         disk_launches = phase_disk(result, torch, dev, rec, search_db,
                                    search_queries, db, queries, fb_hits,
                                    family, overlap=args.overlap)
-        del db, search_db, family
+        del db
         gk_launches = phase_generic_k(result, torch, dev, args, rec)
+        mesh_launches = phase_mesh(result, torch, dev, card, rec, search_db,
+                                   search_queries, family)
+    del search_db, family
     launches = search_launches + fb_launches + giant_launches + \
-        tri_launches + disk_launches + gk_launches
+        tri_launches + disk_launches + gk_launches + mesh_launches
     log(f"[launches] chain-DP kernel on the main paths: search "
         f"{search_launches}, fallback {fb_launches}, giant {giant_launches}, "
         f"triangle {tri_launches}, disk {disk_launches}, generic_k "
-        f"{gk_launches}")
+        f"{gk_launches}, mesh {mesh_launches}")
     entry = phase_kernels(result, torch, dev, rec, launches)
     result["total_s"] = time.perf_counter() - t_start
     log(f"[done] {result['total_s']:.1f} s")

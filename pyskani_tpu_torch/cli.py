@@ -16,22 +16,23 @@ plain PyTorch versions) and takes ``-k`` (4-32, default 15).  FASTA files
 are read by the port's native reader (``io/native.py``, built with g++
 at first use), or by the Python parser where it cannot be built.  With
 ``PYSKANI_TORCH_PROFILE=1`` each command ends by printing
-``stats: <json>`` (``utils/profiling.py``) on stderr.  Not ported yet,
-exiting with code 2 and naming its ROADMAP item: ``--mesh`` (several
-devices).
+``stats: <json>`` (``utils/profiling.py``) on stderr.
+
+``search --mesh DBxBATCH`` and ``triangle --mesh DBxBATCH`` run on
+DB*BATCH ranks (``parallel/``): under ``torchrun`` the ranks come from its
+environment; otherwise the command spawns them, one card each on
+``cuda`` (it exits 2 when there are fewer cards) or gloo ranks with
+``--device cpu``.  Rank 0's rows are written.  ``--ci`` with ``--mesh``
+exits 2, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import os
 import sys
 from typing import List
-
-# what is not ported yet -> the ROADMAP.md item that queues it
-_NOT_PORTED = {
-    "mesh": "--mesh (several devices, ROADMAP A.12)",
-}
 
 
 def _add_sketch_params(p):
@@ -150,24 +151,27 @@ def cmd_sketch(args) -> int:
     return 0
 
 
+def _emit_hits(out, hits, args) -> None:
+    """One query's hit rows: those with an aligned fraction of at least
+    ``--min-af``, best ANI first, capped at ``--max-results``."""
+    hits = [h for h in hits
+            if max(h.query_fraction,
+                   h.reference_fraction) * 100 >= args.min_af]
+    hits.sort(key=lambda h: -h.identity)
+    for h in hits[:args.max_results]:
+        ci = (h.ci_low, h.ci_high) if args.ci else None
+        _emit(out, h.reference_name, h.query_name, h.identity,
+              h.reference_fraction, h.query_fraction, ci)
+
+
 def _run_queries(db, args, out) -> None:
     """Query each input genome and emit filtered, capped hit rows."""
     _header(out, ci=args.ci)
     for qname, qcontigs in _genome_records(args.queries):
-        hits = db.query(qname, *qcontigs, median=args.median,
-                        robust=args.robust, cutoff=_screen_val(args.screen),
-                        faster_small=args.faster_small,
-                        learned_ani=_learned(args.learned_ani),
-                        est_ci=args.ci)
-        hits = [h for h in hits
-                if max(h.query_fraction,
-                       h.reference_fraction) * 100 >= args.min_af]
-        # max_results cap, best ANI first
-        hits.sort(key=lambda h: -h.identity)
-        for h in hits[:args.max_results]:
-            ci = (h.ci_low, h.ci_high) if args.ci else None
-            _emit(out, h.reference_name, h.query_name, h.identity,
-                  h.reference_fraction, h.query_fraction, ci)
+        _emit_hits(out, db.query(
+            qname, *qcontigs, median=args.median, robust=args.robust,
+            cutoff=_screen_val(args.screen), faster_small=args.faster_small,
+            learned_ani=_learned(args.learned_ani), est_ci=args.ci), args)
 
 
 def cmd_dist(args) -> int:
@@ -194,6 +198,8 @@ def cmd_search(args) -> int:
         print("error: no query genomes (positional or --ql)",
               file=sys.stderr)
         return 2
+    if args.mesh:
+        return _run_mesh(args, _search_rank)
     opener = Database.load if args.preload else Database.open
     db = opener(args.database, device=args.device)
     with _out_stream(args.output_file) as out:
@@ -201,67 +207,159 @@ def cmd_search(args) -> int:
     return 0
 
 
-def cmd_triangle(args) -> int:
+def _search_rank(args, shape) -> str:
+    """One rank of ``search --mesh``: the sharded search of every query;
+    returns the TSV rows (every rank computes the same)."""
+    from .database import Database
+    from .parallel.mesh import make_mesh
+    from .parallel.search import ShardedDatabaseSearch
+
+    mesh = make_mesh(*shape, device=args.device)
+    opener = Database.load if args.preload else Database.open
+    db = opener(args.database, device=mesh.device)
+    searcher = ShardedDatabaseSearch(
+        db, mesh, cutoff=_screen_val(args.screen),
+        learned_ani=_learned(args.learned_ani), median=args.median,
+        robust=args.robust, faster_small=args.faster_small)
+    all_hits = searcher.query_many(list(_genome_records(args.queries)))
+    out = io.StringIO()
+    _header(out)
+    for hits in all_hits:
+        _emit_hits(out, hits, args)
+    return out.getvalue()
+
+
+def _run_mesh(args, rank_fn) -> int:
+    """``--mesh DBxBATCH``: ``rank_fn(args, (db, batch))`` on every rank
+    of a DB*BATCH world, rank 0's rows written.  Under ``torchrun`` this
+    process is one rank; otherwise the ranks are spawned (one process
+    group of its own), or for a 1 x 1 mesh run here."""
+    if args.ci:
+        print("error: --ci is not supported with --mesh", file=sys.stderr)
+        return 2
+    try:
+        shape = tuple(int(t) for t in args.mesh.lower().split("x"))
+        if len(shape) != 2 or min(shape) < 1:
+            raise ValueError
+    except ValueError:
+        print(f"error: bad --mesh {args.mesh!r} (expected DBxBATCH)",
+              file=sys.stderr)
+        return 2
+    world = shape[0] * shape[1]
+    import torch
+    import torch.distributed as dist
+
+    from .parallel.dist import initialize_multihost, launch
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        initialize_multihost(device=args.device)
+        try:
+            if dist.get_world_size() != world:
+                print(f"error: --mesh {args.mesh} needs {world} ranks, "
+                      f"torchrun started {dist.get_world_size()}",
+                      file=sys.stderr)
+                return 2
+            text = rank_fn(args, shape)
+            first = dist.get_rank() == 0
+        finally:
+            dist.destroy_process_group()
+    elif world == 1:
+        text, first = rank_fn(args, shape), True
+    else:
+        if args.device == "cuda" and torch.cuda.device_count() < world:
+            print(f"error: --mesh {args.mesh} needs {world} CUDA devices, "
+                  f"found {torch.cuda.device_count()}", file=sys.stderr)
+            return 2
+        text, first = launch(rank_fn, world, (args, shape),
+                             device=args.device)[0], True
+    if first:
+        with _out_stream(args.output_file) as fh:
+            fh.write(text)
+    return 0
+
+
+def _triangle_rank(args, shape) -> str:
+    """One rank of ``triangle --mesh``: every genome sketched on this
+    rank, the tiles spread over the mesh (``sharded_triangle``); returns
+    the rows."""
+    from .engine.batch import default_budgets, stack_sketches
+    from .parallel.dist import sharded_triangle
+    from .parallel.mesh import make_mesh
+
+    mesh = make_mesh(*shape, device=args.device)
+    sketches, cfg = _triangle_sketches(args, mesh.device)
+    batch = stack_sketches(sketches)
+    ri, qi, out = sharded_triangle(batch, mesh, cfg=cfg,
+                                   budgets=default_budgets(sketches, batch,
+                                                           cfg))
+    fh = io.StringIO()
+    _write_triangle(fh, args, [s.name for s in sketches], ri, qi, out)
+    return fh.getvalue()
+
+
+def _triangle_sketches(args, device):
     import dataclasses
 
     from .database import _chain_cfg_for
-    from .engine.batch import triangle
     from .ops.sketch import sketch_genomes_device
     from .params import SketchParams
 
     params = SketchParams(c=args.compression,
                           marker_c=args.marker_compression, k=args.k)
-    genomes = _expand_lists(args.genomes, args.list_files)
-    if len(genomes) < 2:
-        print("error: triangle needs at least two genomes", file=sys.stderr)
-        return 2
-    sketches = sketch_genomes_device(list(_genome_records(genomes)), params,
-                                     device=args.device)
-    names = [s.name for s in sketches]
+    sketches = sketch_genomes_device(list(_genome_records(args.genomes)),
+                                     params, device=device)
     # the chain takes the sketch's k (ANI exponent 1/k, intervals extended
     # by k-1), as Database.query does; the JAX CLI's triangle keeps k=15
-    cfg = dataclasses.replace(_chain_cfg_for(params), est_ci=args.ci)
-    ri, qi, out = triangle(sketches, cfg=cfg)
-    key = "ani_median" if args.median else \
-        "ani_robust" if args.robust else "ani_mean"
+    return sketches, dataclasses.replace(_chain_cfg_for(params),
+                                         est_ci=args.ci)
 
+
+def cmd_triangle(args) -> int:
+    from .engine.batch import triangle
+
+    args.genomes = _expand_lists(args.genomes, args.list_files)
+    if len(args.genomes) < 2:
+        print("error: triangle needs at least two genomes", file=sys.stderr)
+        return 2
+    if args.mesh:
+        return _run_mesh(args, _triangle_rank)
+    sketches, cfg = _triangle_sketches(args, args.device)
+    ri, qi, out = triangle(sketches, cfg=cfg)
     with _out_stream(args.output_file) as fh:
-        if args.full_matrix:
-            # PHYLIP-style lower-triangular matrix (skani triangle's
-            # default output; the sparse TSV is this CLI's default)
-            vals = {}
-            for i in range(len(ri)):
-                v = float(out[key][i])
-                v = 100.0 - 100.0 * v if args.distance else 100.0 * v
-                vals[(max(ri[i], qi[i]), min(ri[i], qi[i]))] = v
-            diag = 0.0 if args.distance else 100.0
-            fh.write(f"{len(names)}\n")
-            for i, name in enumerate(names):
-                row = [name]
-                row += [f"{vals.get((i, j), 0.0):.2f}" for j in range(i)]
-                row.append(f"{diag:.2f}")
-                fh.write("\t".join(row) + "\n")
-            return 0
-        _header(fh, ci=args.ci)
-        for i in range(len(ri)):
-            ani = float(out[key][i])
-            af_q = float(out["af_query"][i])
-            af_r = float(out["af_ref"][i])
-            if ani <= 0.1 or max(af_q, af_r) * 100 < args.min_af:
-                continue
-            if args.distance:
-                ani = 1.0 - ani
-            ci = (float(out["ani_ci_low"][i]),
-                  float(out["ani_ci_high"][i])) if args.ci else None
-            _emit(fh, names[ri[i]], names[qi[i]], ani, af_r, af_q, ci)
+        _write_triangle(fh, args, [s.name for s in sketches], ri, qi, out)
     return 0
 
 
-def _not_ported(what: str) -> int:
-    print(f"error: {_NOT_PORTED.get(what, what)} is not ported to the "
-          f"PyTorch engine yet; use the JAX package's skani-tpu for it",
-          file=sys.stderr)
-    return 2
+def _write_triangle(fh, args, names, ri, qi, out) -> None:
+    key = "ani_median" if args.median else \
+        "ani_robust" if args.robust else "ani_mean"
+    if args.full_matrix:
+        # PHYLIP-style lower-triangular matrix (skani triangle's
+        # default output; the sparse TSV is this CLI's default)
+        vals = {}
+        for i in range(len(ri)):
+            v = float(out[key][i])
+            v = 100.0 - 100.0 * v if args.distance else 100.0 * v
+            vals[(max(ri[i], qi[i]), min(ri[i], qi[i]))] = v
+        diag = 0.0 if args.distance else 100.0
+        fh.write(f"{len(names)}\n")
+        for i, name in enumerate(names):
+            row = [name]
+            row += [f"{vals.get((i, j), 0.0):.2f}" for j in range(i)]
+            row.append(f"{diag:.2f}")
+            fh.write("\t".join(row) + "\n")
+        return
+    _header(fh, ci=args.ci)
+    for i in range(len(ri)):
+        ani = float(out[key][i])
+        af_q = float(out["af_query"][i])
+        af_r = float(out["af_ref"][i])
+        if ani <= 0.1 or max(af_q, af_r) * 100 < args.min_af:
+            continue
+        if args.distance:
+            ani = 1.0 - ani
+        ci = (float(out["ani_ci_low"][i]),
+              float(out["ani_ci_high"][i])) if args.ci else None
+        _emit(fh, names[ri[i]], names[qi[i]], ani, af_r, af_q, ci)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -289,7 +387,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--preload", action="store_true",
                    help="load all sketches onto the device up front")
     p.add_argument("--mesh", default=None, metavar="DBxBATCH",
-                   help="several devices (not ported yet)")
+                   help="shard the store over DB ranks and the queries "
+                        "over BATCH ranks (parallel/)")
     _add_query_params(p)
     p.set_defaults(func=cmd_search)
 
@@ -317,7 +416,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sparse TSV edge list (this CLI's default; flag "
                         "kept for skani compatibility)")
     p.add_argument("--mesh", default=None, metavar="DBxBATCH",
-                   help="several devices (not ported yet)")
+                   help="spread the triangle's tiles over DB*BATCH ranks "
+                        "(parallel/)")
     _add_sketch_params(p)
     _add_query_params(p)
     p.set_defaults(func=cmd_triangle)
@@ -326,8 +426,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if getattr(args, "mesh", None):
-        return _not_ported("mesh")
     import torch
     if torch.device(args.device).type == "cuda" and \
             not torch.cuda.is_available():

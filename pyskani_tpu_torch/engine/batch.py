@@ -87,10 +87,12 @@ def _stack(sketches: Sequence[HostSketch], seed_budget, marker_budget,
 
 def stack_sketches(sketches: Sequence[HostSketch],
                    seed_budget: int | None = None,
-                   marker_budget: int | None = None) -> DeviceSketch:
+                   marker_budget: int | None = None,
+                   contig_budget: int | None = None) -> DeviceSketch:
     """Stack sketches into one batched DeviceSketch (leading axis N) on
-    the first sketch's device, with a common power-of-two contig table."""
-    return _stack(sketches, seed_budget, marker_budget, None)
+    the first sketch's device, with a common power-of-two contig table
+    (``contig_budget`` wide, by default the largest member's bucket)."""
+    return _stack(sketches, seed_budget, marker_budget, contig_budget)
 
 
 def stack_sketches_host(sketches: Sequence[HostSketch],
@@ -100,8 +102,11 @@ def stack_sketches_host(sketches: Sequence[HostSketch],
                         pin: bool = False) -> DeviceSketch:
     """:func:`stack_sketches` on the host: the stack's tensors are on the
     CPU, in pinned (page-locked) memory with ``pin``, so that one
-    asynchronous copy moves a whole chunk to the card.  The contig table
-    is ``contig_budget`` wide, by default the largest member's bucket."""
+    asynchronous copy moves a whole chunk to the card.  Pinned buffers
+    belong to the current CUDA device's context, so a caller that pins
+    makes its target card current first (``engine/stream.py::stage_chunk``
+    does).  The contig table is ``contig_budget``
+    wide, by default the largest member's bucket."""
     cpu = [dataclasses.replace(s, device=s.device.map(lambda t: t.cpu()))
            for s in sketches]
     return _stack(cpu, seed_budget, marker_budget, contig_budget, pin)

@@ -15,6 +15,7 @@ nothing on an H100 (``chip_smoke.py --overlap``, PERF.md).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List
 
 import numpy as np
@@ -23,6 +24,21 @@ import torch
 from ..ops.chain import ChainConfig, EngineBudgets, chain_block
 from ..ops.sketch import HostSketch
 from .batch import stack_sketches_host
+
+
+def stage_chunk(hosts: List[HostSketch], dev, seed_budget: int,
+                marker_budget: int, contig_budget: int | None = None):
+    """Stack ``hosts`` on the host and copy the stack to ``dev`` as one
+    ``DeviceSketch``.  A CUDA target stacks into pinned buffers and copies
+    with ``non_blocking=True``; pinned memory belongs to the current
+    device's context, so the target card is made current while pinning,
+    whichever card the caller has current."""
+    dev = torch.device(dev)
+    pin = dev.type == "cuda"
+    with torch.cuda.device(dev) if pin else contextlib.nullcontext():
+        stack = stack_sketches_host(hosts, seed_budget, marker_budget,
+                                    contig_budget, pin=pin)
+    return stack.map(lambda t: t.to(dev, non_blocking=pin))
 
 
 def stream_one_vs_many(load: Callable[[str], HostSketch], names: List[str],
@@ -40,16 +56,13 @@ def stream_one_vs_many(load: Callable[[str], HostSketch], names: List[str],
     if not names:
         return {}
     dev = query.device
-    # pinning needs CUDA: only a CUDA target pins
-    pin = dev.type == "cuda"
     q1 = query.map(lambda x: x[None])
     outs = []
     for i in range(0, len(names), chunk):
         hosts = [load(n) for n in names[i:i + chunk]]
         hosts += [hosts[0]] * (chunk - len(hosts))
-        stack = stack_sketches_host(hosts, seed_budget, marker_budget,
-                                    contig_budget, pin=pin)
-        refs = stack.map(lambda t: t.to(dev, non_blocking=pin))
+        refs = stage_chunk(hosts, dev, seed_budget, marker_budget,
+                           contig_budget)
         out = chain_block(refs, q1, cfg=cfg, budgets=budgets)
         outs.append({k: v[:, 0] for k, v in out.items()})
     P = len(names)

@@ -100,8 +100,8 @@ def chain_dp(qpos: torch.Tensor, rpos: torch.Tensor, meta: torch.Tensor,
     """Run the DP over row-major grids [R, PF] -> (score, root) [R, PF].
 
     ``meta`` packs qcid[30:17] rcid[16:3] rev[1] valid[0].  CPU tensors
-    take :func:`chain_dp_plain`; CUDA tensors launch the kernel on the
-    current stream (``chain_dp.launches`` counts the launches)."""
+    take :func:`chain_dp_plain`; CUDA tensors launch the kernel on their
+    device's current stream (``chain_dp.launches`` counts the launches)."""
     grids = (qpos, rpos, meta)
     if all(t.device.type == "cpu" for t in grids):
         return chain_dp_plain(qpos, rpos, meta, cfg)
@@ -130,12 +130,15 @@ def chain_dp(qpos: torch.Tensor, rpos: torch.Tensor, meta: torch.Tensor,
     root = torch.empty((R, PF), dtype=torch.int32, device=dev)
     if R == 0 or PF == 0:
         return score, root
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.chain_dp_launch(
-        qpos.data_ptr(), rpos.data_ptr(), meta.data_ptr(),
-        score.data_ptr(), root.data_ptr(), R, PF, cfg.chain_band,
-        float(cfg.anchor_score), float(cfg.gap_cost_scale),
-        int(cfg.max_gap_length), stream)
+    # the CUDA runtime launches on the thread's current device: make it
+    # the grids' device, whatever device the caller has current
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.chain_dp_launch(
+            qpos.data_ptr(), rpos.data_ptr(), meta.data_ptr(),
+            score.data_ptr(), root.data_ptr(), R, PF, cfg.chain_band,
+            float(cfg.anchor_score), float(cfg.gap_cost_scale),
+            int(cfg.max_gap_length), stream)
     if err != 0:
         raise RuntimeError(f"chain_dp kernel launch failed: CUDA error {err}")
     chain_dp.launches += 1

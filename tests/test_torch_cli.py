@@ -5,8 +5,10 @@ The same FASTA files go through ``pyskani_tpu.cli`` and
 ``pyskani_tpu_torch.cli --device cpu``: the same rows, and every number
 within 0.01 of the JAX package's printed value (both print 2 decimals, so
 a last-ulp difference may flip the rounding), at the default k and at
-``-k 16``.  ``--mesh`` is not ported yet and exits with code 2, naming
-its ROADMAP item; without CUDA the default device refuses to run.
+``-k 16``.  ``--mesh 2x2 --device cpu`` runs 4 spawned gloo ranks and
+prints the JAX CLI's ``--mesh 2x2`` rows; ``--ci`` with ``--mesh`` exits
+with code 2, as in the JAX CLI; without CUDA the default device refuses
+to run.
 """
 
 import dataclasses
@@ -143,11 +145,12 @@ def test_dist_matches_jax_cli(fasta, capsys, variant):
     assert len(got.strip().splitlines()) == 1 + 4
 
 
+# what the JAX package lacks too: --ci with --mesh exits 2 in both CLIs
 NOT_PORTED = {
-    "triangle_mesh": (["triangle", "base.fa", "mut3.fa", "--mesh", "2x1"],
-                      "A.12"),
-    "search_mesh": (["search", "-d", "DB", "base.fa", "--mesh", "2x1"],
-                    "A.12"),
+    "triangle_mesh": ["triangle", "base.fa", "mut3.fa", "--mesh", "2x1",
+                      "--ci"],
+    "search_mesh": ["search", "-d", "DB", "base.fa", "--mesh", "2x1",
+                    "--ci"],
 }
 
 
@@ -184,12 +187,78 @@ def test_triangle_k16_matches_jax_cli(fasta, capsys, monkeypatch):
 
 @pytest.mark.parametrize("case", list(NOT_PORTED))
 def test_not_ported_exit_2(fasta, capsys, case):
-    argv, item = NOT_PORTED[case]
-    rc, out, err = _run(cli.main, [fasta.get(a, a) for a in argv] +
-                        ["--device", "cpu"], capsys)
+    argv = [fasta.get(a, a) for a in NOT_PORTED[case]]
+    rc, out, err = _run(cli.main, argv + ["--device", "cpu"], capsys)
     assert rc == 2
-    assert "not ported" in err and f"ROADMAP {item}" in err
+    assert "--ci is not supported with --mesh" in err
     assert out == ""
+    if case == "triangle_mesh":
+        assert _run(jax_cli.main, argv, capsys)[0] == 2
+
+
+@pytest.fixture
+def jax_mesh_of_4(monkeypatch):
+    """The JAX CLI's ``--mesh DBxBATCH`` builds its mesh over every
+    device; here it takes the first DB*BATCH of the 8 virtual ones."""
+    import jax
+    from pyskani_tpu.parallel import mesh as jax_mesh
+    real = jax_mesh.make_mesh
+    monkeypatch.setattr(jax_mesh, "make_mesh", lambda db, batch: real(
+        db, batch, devices=jax.devices()[:db * batch]))
+
+
+def test_triangle_mesh_matches_jax_cli(fasta, capsys, jax_mesh_of_4):
+    genomes = [fasta[n] for n in ("base.fa", "mut1.fa.gz", "mut3.fa",
+                                  "draft.fa", "other.fa")]
+    argv = ["triangle", *genomes, "--mesh", "2x2"]
+    rc_w, want, _ = _run(jax_cli.main, argv, capsys)
+    rc, got, _ = _run(cli.main, argv + ["--device", "cpu"], capsys)
+    assert rc == rc_w == 0
+    _assert_same_output(got, want)
+    assert len(got.strip().splitlines()) == 1 + 6
+
+
+def test_mesh_under_torchrun_environment(fasta, capsys, monkeypatch,
+                                         jax_mesh_of_4):
+    """With the variables ``torchrun`` sets, this process is one rank: it
+    joins the world over TCP, writes rank 0's rows and leaves the group;
+    a mesh of another size than the world exits 2."""
+    import socket
+
+    import torch.distributed as dist
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    genomes = [fasta[n] for n in ("base.fa", "mut1.fa.gz", "mut3.fa")]
+    rc_w, want, _ = _run(jax_cli.main, ["triangle", *genomes, "--mesh",
+                                        "1x1"], capsys)
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    rc, got, _ = _run(cli.main, ["triangle", *genomes, "--mesh", "1x1",
+                                 "--device", "cpu"], capsys)
+    assert rc == rc_w == 0 and not dist.is_initialized()
+    _assert_same_output(got, want)
+    rc, out, err = _run(cli.main, ["triangle", *genomes, "--mesh", "2x1",
+                                   "--device", "cpu"], capsys)
+    assert rc == 2 and out == "" and not dist.is_initialized()
+    assert "needs 2 ranks, torchrun started 1" in err
+
+
+def test_mesh_spec_and_cards(fasta, capsys, monkeypatch):
+    """A malformed ``--mesh`` exits 2; so does a mesh with more ranks
+    than cards on ``cuda``."""
+    argv = ["triangle", fasta["base.fa"], fasta["mut3.fa"], "--mesh"]
+    for bad in ("2", "2x", "0x1", "axb"):
+        rc, out, err = _run(cli.main, argv + [bad, "--device", "cpu"],
+                            capsys)
+        assert rc == 2 and out == "" and "bad --mesh" in err
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    rc, out, err = _run(cli.main, argv + ["2x1"], capsys)
+    assert rc == 2 and out == ""
+    assert "needs 2 CUDA devices, found 1" in err
 
 
 SEARCH = {
@@ -248,6 +317,23 @@ def test_sketch_search_matches_jax_cli(fasta, stores, capsys, variant, fmt):
     assert len(rows) == 1 + 4
     assert len(rows[1].split("\t")) == (7 if "--ci" in SEARCH[variant]
                                         else 5)
+
+
+@pytest.mark.parametrize("preload", [False, True])
+def test_search_mesh_matches_jax_cli(fasta, stores, capsys, jax_mesh_of_4,
+                                     preload):
+    queries = [fasta["mut1.fa.gz"], fasta["mut3.fa"]]
+    flags = ["--mesh", "2x2", "--learned-ani", "no"] + \
+        (["--preload"] if preload else [])
+    rc_w, want, _ = _run(jax_cli.main, [
+        "search", "-d", str(stores[("jax", "consolidated")]), *queries,
+        *flags], capsys)
+    rc, got, _ = _run(cli.main, [
+        "search", "-d", str(stores[("port", "consolidated")]), *queries,
+        *flags, "--device", "cpu"], capsys)
+    assert rc == rc_w == 0
+    _assert_same_output(got, want)
+    assert len(got.strip().splitlines()) == 1 + 4
 
 
 def test_search_without_queries_exits_2(stores, capsys):

@@ -55,7 +55,13 @@ Phases (any failure exits non-zero and prints no result line):
              complete pairs must equal a triangle of the complete genomes
              alone, and one complete-draft pair the CPU port's (1e-6).
              (c) ``cli.main(["triangle", ...])`` on 4 FASTA files: its
-             rows must equal the engine's;
+             rows must equal the engine's.  (d) a fragment budget of 64
+             (the genomes have 115): ``chain_triangle`` of 4 genomes and
+             ``chain_block`` of 2 against a genome's last 1 Mbp (the
+             reference side alone past it) must flag ``frag_overflow`` on every pair as
+             the CPU port does, agree with it on every other key, and
+             ``check_overflow`` must raise, also through
+             ``engine.batch.triangle``;
 8. disk     — on-disk stores and the bootstrap interval.  (a) the search
              store saved in both formats to a temporary folder (bytes
              and write rate), opened (each query streams its shortlist
@@ -130,7 +136,10 @@ giant query, each of the three triangles, each timed run of the disk
 phase, the k = 21 queries, streamed queries and CLI, each part of the
 mesh phase in every rank) and read just after; each must launch it, the
 per-pair path for every fallback query, and the family triangle exactly
-3 times.  The kernels line counts every rank's launches.
+3 times.  The kernels line counts every rank's launches, and the
+fragment-budget part's 3 (printed apart on the launches line).  Every
+chain call of every phase, in every rank, must return ``frag_overflow``
+and, outside that part, set it on no pair.
 
 The last three lines are the card line, one ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
@@ -449,7 +458,8 @@ class Recorder:
     first grid of each path and shape) and ``chain_block`` /
     ``chain_pairs`` / ``chain_triangle`` as ``engine/batch.py``,
     ``engine/stream.py`` and ``parallel/dist.py`` call them (the
-    wrapper's own launch count before and after each call)."""
+    wrapper's own launch count before and after each call, and each
+    output's ``frag_overflow``)."""
 
     PATHS = ("chain_block", "chain_pairs", "chain_triangle")
 
@@ -461,6 +471,7 @@ class Recorder:
         from pyskani_tpu_torch.parallel import dist as dist_mod
         self.grids = []          # (phase, path, (qpos, rpos, meta))
         self.launches = {}       # (phase, path) -> launches
+        self.flags = []          # (phase, frag_overflow or None) per call
         self.phase = None
         self.keep = True
         self.distinct = set()    # phases that keep one grid per shape
@@ -496,13 +507,28 @@ class Recorder:
             before = dp_mod.chain_dp.launches
             self._path.append(name)
             try:
-                return fn(*a, **kw)
+                out = fn(*a, **kw)
             finally:
                 self._path.pop()
                 key = (self.phase, name)
                 self.launches[key] = self.launches.get(key, 0) + \
                     dp_mod.chain_dp.launches - before
+            self.flags.append((self.phase, out.get("frag_overflow")))
+            return out
         return call
+
+    def flag_report(self) -> dict:
+        """{phase: [chain calls, calls without ``frag_overflow``, pairs
+        flagged]} over every recorded call."""
+        rep = {}
+        for phase, flag in self.flags:
+            r = rep.setdefault(str(phase), [0, 0, 0])
+            r[0] += 1
+            if flag is None:
+                r[1] += 1
+            else:
+                r[2] += int(flag.sum())
+        return rep
 
     def __exit__(self, *exc):
         _, chain_mod, _ = self._mods
@@ -901,10 +927,98 @@ def _cpu(t):
     return {k: v.cpu().numpy() for k, v in t.items()}
 
 
+FRAG_BUDGET = dict(genomes=4, max_fragments=64, cut_bp=1_000_000)
+
+
+def _frag_budget_part(torch, dev, rec, genomes, sketches, cfg, budgets):
+    """A fragment budget that truncates: 64 of the family genomes' 115
+    fragments.  ``chain_triangle`` of 4 genomes (both sides of every pair
+    past the budget) and ``chain_block`` of 2 whole genomes against a
+    query of another's last 1 Mbp (50 fragments: the reference side
+    alone) on the
+    card, then the same calls on the CPU port; the card's
+    ``frag_overflow`` must equal the CPU's and be set on every pair, every
+    other key must agree (integers equal, floats within 1e-6), and
+    ``check_overflow`` must raise on both and through
+    ``engine.batch.triangle``.  Returns (chain-DP launches, report)."""
+    import dataclasses
+
+    import pyskani_tpu_torch
+    from pyskani_tpu_torch.engine import batch as eb
+    from pyskani_tpu_torch.ops import chain_dp as dp_mod
+
+    F = FRAG_BUDGET
+    small = dataclasses.replace(budgets, max_fragments=F["max_fragments"])
+    cut_db = pyskani_tpu_torch.Database()
+    # the last 1 Mbp: chains on the references' fragments 65-114
+    cut_db.sketch("cut", genomes[F["genomes"]][-F["cut_bp"]:])
+    cut = cut_db._storage.load("cut")
+    if cut.n_fragments(cfg.fragment_length) >= F["max_fragments"]:
+        raise AssertionError("the cut query must fit the fragment budget")
+    stack = eb.stack_sketches(sketches[:F["genomes"]])
+    refs = eb.take_sketch(stack, torch.tensor([0, 1], device=dev))
+    query = eb.stack_sketches([cut])
+
+    def calls(st, r, q):
+        return (_cpu(eb.chain_triangle(st, cfg=cfg, budgets=small)),
+                _cpu(eb.chain_block(r, q, cfg=cfg, budgets=small)))
+
+    rec.phase = "frag_budget"
+    dp_mod.chain_dp.launches = 0
+    tri, blk = calls(stack, refs, query)
+    tri_cpu, blk_cpu = calls(*(x.map(lambda t: t.cpu())
+                               for x in (stack, refs, query)))
+    raised = []
+    try:
+        eb.triangle(sketches[:F["genomes"]], cfg, budgets=small)
+    except RuntimeError as e:
+        raised.append(str(e))
+    launches = dp_mod.chain_dp.launches
+    rec.phase = None
+    for out in (tri, blk):
+        try:
+            eb.check_overflow(out, small)
+        except RuntimeError as e:
+            raised.append(str(e))
+    diffs = {}
+    for label, card, cpu in (("chain_triangle", tri, tri_cpu),
+                             ("chain_block", blk, blk_cpu)):
+        if not (np.array_equal(card["frag_overflow"], cpu["frag_overflow"])
+                and card["frag_overflow"].all()):
+            raise AssertionError(f"{label} frag_overflow: card "
+                                 f"{card['frag_overflow']} vs CPU "
+                                 f"{cpu['frag_overflow']}")
+        for k in card:
+            if k not in FLOAT_KEYS and \
+                    not np.array_equal(card[k], cpu[k]):
+                raise AssertionError(f"{label} {k}: card {card[k]} vs CPU "
+                                     f"{cpu[k]}")
+        diffs[label] = _out_diff(card, cpu)
+    if len(raised) != 3 or not all("fragment budget overflow" in m
+                                   for m in raised):
+        raise AssertionError(f"check_overflow raised {raised}")
+    if max(diffs.values()) > 1e-6 or launches != 3:
+        raise AssertionError(f"frag_budget: card vs CPU {diffs}, chain-DP "
+                             f"launches {launches}")
+    log(f"[triangle] fragment budget {F['max_fragments']} of "
+        f"{sketches[0].n_fragments(cfg.fragment_length)}: chain_triangle "
+        f"({len(tri['frag_overflow'])} pairs) and chain_block (2 whole "
+        f"references x a {F['cut_bp']} bp query) flag every pair, card = "
+        f"CPU port (max |diff| {max(diffs.values()):.3g}); check_overflow "
+        f"raised 3 of 3 (engine.batch.triangle, both outputs); chain-DP "
+        f"launches {launches}")
+    return launches, dict(pairs={k: len(v["frag_overflow"])
+                                 for k, v in (("chain_triangle", tri),
+                                              ("chain_block", blk))},
+                          max_diff=diffs, raised=len(raised),
+                          launches=launches)
+
+
 def phase_triangle(result, torch, dev, args, rec, db):
     """All-vs-all: (a) a 64-genome family, (b) a mixed complete/draft set
-    from the fallback store, (c) the CLI.  Returns the chain-DP launches
-    of the three main-path calls."""
+    from the fallback store, (c) the CLI, (d) a fragment budget that
+    truncates (``_frag_budget_part``).  Returns the chain-DP launches of
+    the three main-path calls, those of (d) and the family."""
     import tempfile
 
     import pyskani_tpu_torch
@@ -1004,6 +1118,9 @@ def phase_triangle(result, torch, dev, args, rec, db):
         f"{pairs_diff:.3g} (n_anchors equal); 3-genome chain_triangle card "
         f"vs CPU port: max |diff| {cpu_diff:.3g}")
     del batch, three
+    # ---- (d) a fragment budget that truncates: raises, card = CPU ----
+    frag_launches, frag_rep = _frag_budget_part(
+        torch, dev, rec, genomes, sketches, cfg, budgets)
 
     # ---- (b) mixed: 8 complete genomes + 8 drafts of the fallback store ----
     mixed = [db._storage.load(m.name) for m in db._markers[:16]]
@@ -1098,9 +1215,11 @@ def phase_triangle(result, torch, dev, args, rec, db):
                    per_pair_pairs=n_fb, dp_launches=mixed_path,
                    grid_shapes=mshapes, control_max_diff=ctrl_diff,
                    cpu_max_diff=mixed_cpu_diff),
-        cli=dict(rows=len(rows) - 1, dp_launches=cli_launches))
+        cli=dict(rows=len(rows) - 1, dp_launches=cli_launches),
+        frag_budget=frag_rep)
     family = dict(names=names, genomes=genomes, sketches=sketches, out=out)
-    return fam_launches + mixed_launches + cli_launches, family
+    return fam_launches + mixed_launches + cli_launches, frag_launches, \
+        family
 
 
 def _write_fasta(path, name: str, g: bytes, width: int = 80) -> str:
@@ -1687,6 +1806,7 @@ def mesh_rank(store, queries, fam, shapes, ring):
         _mesh_rank_run(out, store, queries, fam, shapes, ring)
         out["launches"] = dp_mod.chain_dp.launches
     out["grids"] = _hold_plain(torch, rec.grids, ChainConfig())
+    out["flags"] = rec.flag_report()
     return out
 
 
@@ -1741,7 +1861,8 @@ def _hold_plain(torch, grids, cfg) -> list:
 def _check_ranks(ranks, want_hits, want_tri, label) -> dict:
     """Parts (b) and (c): every rank on CUDA, every rank launched the DP
     and held a ``chain_pairs`` (search) and a ``chain_block`` (triangle)
-    grid bit-equal to the plain version, every rank's results equal part
+    grid bit-equal to the plain version, no rank's chain call set or
+    lacked ``frag_overflow``, every rank's results equal part
     (a)'s (hits and the sharded triangle within 1e-6, integers of the
     triangle equal; the ring's estimators within 1e-6 of
     ``engine.batch.triangle``)."""
@@ -1753,6 +1874,9 @@ def _check_ranks(ranks, want_hits, want_tri, label) -> dict:
         if res["launches"] < 1:
             raise AssertionError(f"{label} rank {r} never launched the "
                                  f"chain-DP kernel")
+        if any(f[1] or f[2] for f in res["flags"].values()):
+            raise AssertionError(f"{label} rank {r} frag_overflow [calls, "
+                                 f"missing, flagged]: {res['flags']}")
         paths = {p for p, _ in res["grids"]}
         if not {"chain_pairs", "chain_block"} <= paths:
             raise AssertionError(f"{label} rank {r} checked grids of "
@@ -2525,6 +2649,21 @@ def phase_kernels(result, torch, dev, rec, launches):
     return entry
 
 
+def check_flags(result, report: dict) -> None:
+    """Every chain call of every phase returned ``frag_overflow``, and no
+    pair of a default-budget phase (all but ``frag_budget``) set it."""
+    bad = {ph: r for ph, r in report.items()
+           if r[1] or (r[2] and ph != "frag_budget")}
+    if bad or not report.get("frag_budget", [0, 0, 0])[2]:
+        raise AssertionError(f"frag_overflow per phase [calls, missing, "
+                             f"flagged]: {report}")
+    calls = sum(r[0] for r in report.values())
+    log(f"[flags] frag_overflow on all {calls} chain calls of this "
+        f"process; flagged pairs only in the frag_budget part "
+        f"({report['frag_budget'][2]}): {report}")
+    result["frag_overflow_report"] = report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2571,8 +2710,8 @@ def main() -> int:
             result, torch, dev, args, rec)
         giant_launches = phase_giant(result, torch, dev, args, rec, db,
                                      queries, fb_hits)
-        tri_launches, family = phase_triangle(result, torch, dev, args, rec,
-                                              db)
+        tri_launches, frag_launches, family = phase_triangle(
+            result, torch, dev, args, rec, db)
         disk_launches = phase_disk(result, torch, dev, rec, search_db,
                                    search_queries, db, queries, fb_hits,
                                    family, overlap=args.overlap)
@@ -2581,12 +2720,15 @@ def main() -> int:
         mesh_launches = phase_mesh(result, torch, dev, card, rec, search_db,
                                    search_queries, family)
     del search_db, family
-    launches = search_launches + fb_launches + giant_launches + \
+    check_flags(result, rec.flag_report())
+    main_launches = search_launches + fb_launches + giant_launches + \
         tri_launches + disk_launches + gk_launches + mesh_launches
+    launches = main_launches + frag_launches
     log(f"[launches] chain-DP kernel on the main paths: search "
         f"{search_launches}, fallback {fb_launches}, giant {giant_launches}, "
         f"triangle {tri_launches}, disk {disk_launches}, generic_k "
-        f"{gk_launches}, mesh {mesh_launches}")
+        f"{gk_launches}, mesh {mesh_launches}: {main_launches}; with the "
+        f"fragment-budget part's {frag_launches}: {launches}")
     entry = phase_kernels(result, torch, dev, rec, launches)
     result["total_s"] = time.perf_counter() - t_start
     log(f"[done] {result['total_s']:.1f} s")

@@ -24,7 +24,11 @@ hold).  For G_r references x G_q queries, ``chain_block``:
 
 Integer outputs equal the JAX package's bit for bit; f32 estimators and
 aligned fractions agree within 1e-6 (summation order and ``pow`` may
-differ in the last ulp).
+differ in the last ulp).  One key departs from it: ``frag_overflow`` [P]
+is set, on every path, for a pair that lost anchors or spans to a
+fragment past ``max_fragments`` on either genome; the JAX package sets it
+on ``chain_pairs`` for the query side only, so its packed paths and its
+reference grids truncate a result silently.
 """
 
 from __future__ import annotations
@@ -285,7 +289,8 @@ def _ref_spans(clens_r, r_fo, keep_f, rmn_f, rmx_f, rcid_f,
                cfg: ChainConfig, NF: int):
     """Kept-chain coverage spans over the REFERENCE fragment grid, per
     pair: all arguments are [P, ...].  Returns (span_lo, span_hi) [P, NF]
-    in contig-local coordinates."""
+    in contig-local coordinates and ``dropped`` [P]: a span piece fell in
+    a reference fragment >= NF, past the grid."""
     fl = cfg.fragment_length
     P = keep_f.shape[0]
     dev = keep_f.device
@@ -297,18 +302,21 @@ def _ref_spans(clens_r, r_fo, keep_f, rmn_f, rmx_f, rcid_f,
     span_lo = torch.full((P, NF + 1), I32_SENTINEL, dtype=torch.int64,
                          device=dev)
     span_hi = torch.full((P, NF + 1), NEG_BIG, dtype=torch.int64, device=dev)
+    dropped = torch.zeros(P, dtype=torch.bool, device=dev)
     for j in range(_REF_SPAN_PIECES):
         base = (f0_local + j) * fl
         plo = torch.maximum(lo, base)
         phi = torch.minimum(hi, base + fl - 1)
         fj = fo + f0_local + j
-        okp = keep_f & (plo <= phi) & (fj < NF)
+        live = keep_f & (plo <= phi)
+        okp = live & (fj < NF)
+        dropped |= (live & ~okp).any(1)
         slot = torch.where(okp, fj, NF)
         span_lo.scatter_reduce_(1, slot, torch.where(okp, plo, I32_SENTINEL),
                                 "amin", include_self=True)
         span_hi.scatter_reduce_(1, slot, torch.where(okp, phi, NEG_BIG),
                                 "amax", include_self=True)
-    return span_lo[:, :NF], span_hi[:, :NF]
+    return span_lo[:, :NF], span_hi[:, :NF], dropped
 
 
 def rcid_bits_for(C: int) -> int:
@@ -383,7 +391,9 @@ def _post_dp_block(refs: DeviceSketch, queries: DeviceSketch,
     anchors are the chain ends of the JAX per-row sort, in the same
     (row, root) order.  Kept chain ends are compacted into a
     [P, max_chains_per_pair] table for the per-pair tail (AF unions,
-    ref-side spans); overflow is reported in the ``n_chains`` output."""
+    ref-side spans); overflow is reported in the ``n_chains`` output.
+    ``frag_overflow`` [P] is set where a kept anchor or a kept chain's
+    span lies in a reference fragment >= NF, which the ref grid drops."""
     fl = cfg.fragment_length
     NF = budgets.max_fragments
     PF = budgets.max_anchors_per_fragment
@@ -461,11 +471,13 @@ def _post_dp_block(refs: DeviceSketch, queries: DeviceSketch,
         g_of = tail_r[pair_of_row]
         refrag = r_frag_offs[g_of[:, None], rcid_el] + (w2g >> rcid_bits) // fl
         ok_el = keep_elem & (refrag < NF)
+        ref_over = (keep_elem & ~ok_el).view(P, NF * PF).any(1)
         tgt = torch.where(ok_el, pair_of_row[:, None] * NF + refrag, P * NF)
         numer_r = torch.zeros(P * NF + 1, dtype=i64, device=dev).index_add_(
             0, tgt.reshape(-1), ok_el.to(i64).reshape(-1))[:P * NF].view(P, NF)
     else:
         numer_r = torch.zeros((P, NF), dtype=i64, device=dev)
+        ref_over = torch.zeros(P, dtype=torch.bool, device=dev)
 
     # ---- per-pair tail: denominators, estimators, AF unions ----
     frag_ids = torch.arange(NF, device=dev, dtype=i64)
@@ -491,9 +503,10 @@ def _post_dp_block(refs: DeviceSketch, queries: DeviceSketch,
     rcid_e = end_rcid.clamp(0, Cr - 1)
     qcid_e = frag_cid_g[tail_q[:, None], row_sel]
     if cfg.est_side == "both":
-        span_lo_r, span_hi_r = _ref_spans(
+        span_lo_r, span_hi_r, span_over = _ref_spans(
             refs.contig_lengths.to(i64)[tail_r], r_frag_offs[tail_r],
             end_valid, end_rmn, end_rmx, rcid_e, cfg, NF)
+        ref_over |= span_over
         frag_cid_r = _frag_contig(r_frag_offs, NF, Cr)          # [G_r, NF]
         rst_frag_g = r_starts_all.gather(1, frag_cid_r)
         g_lo_r = rst_frag_g[tail_r] + span_lo_r
@@ -528,6 +541,7 @@ def _post_dp_block(refs: DeviceSketch, queries: DeviceSketch,
     out["af_ref"] = _union_length(r_lo, r_hi, end_valid).to(f32) / \
         torch.clamp(refs.total_len[tail_r].to(f32), min=1.0)
     out["n_chains"] = n_chains
+    out["frag_overflow"] = ref_over
     return out
 
 
@@ -542,6 +556,28 @@ def _frag_ani(numer, denom, cfg: ChainConfig):
     return torch.where(covered, ratio ** (1.0 / float(cfg.k)), inf), covered
 
 
+def _expand_runs(ok, rc, run_start, total: int):
+    """The first ``total`` slots of a join's expansion, as (src, r_idx):
+    slot t belongs to the ``ok`` entry whose run of ``rc`` slots covers
+    it, and pairs that entry with the sorted entry ``run_start[src] + j``,
+    j being t's rank inside the run."""
+    src_ok = torch.nonzero(ok).flatten()
+    cnt = rc[src_ok]
+    cend = torch.cumsum(cnt, 0)
+    t = torch.arange(total, device=rc.device, dtype=torch.int64)
+    k = torch.searchsorted(cend, t, right=True)
+    src = src_ok[k]
+    return src, run_start[src] + t - (cend[k] - cnt[k])
+
+
+def _pool_counts(ok, over, rc):
+    """(anchors the ``ok`` entries expand to, anchors the ``over`` entries
+    would expand to): one host read for the pool's size and the side
+    expansion of the entries past the fragment budget."""
+    return torch.stack([torch.where(ok, rc, 0).sum(),
+                        torch.where(over, rc, 0).sum()]).tolist()
+
+
 def _block_join(refs: DeviceSketch, queries: DeviceSketch, cfg: ChainConfig,
                 total_anchors: int, q_frag_offs: torch.Tensor, NF: int):
     """Anchors for EVERY (ref genome, query genome) pair from ONE sort.
@@ -552,7 +588,12 @@ def _block_join(refs: DeviceSketch, queries: DeviceSketch, cfg: ChainConfig,
     occurrence expands against its run's reference prefix.  Seeds whose
     own multiplicity exceeds ``max_seed_multiplicity`` are masked up front
     (a k-mer's run length within one genome is its multiplicity there).
-    Returns the valid anchors only, plus the join's counts."""
+
+    A query seed whose fragment lies past NF still expands and takes
+    pool slots, as in the JAX join, and its anchors are dropped here.
+    Such seeds are expanded once more on the side, only to set
+    ``frag_overflow`` [G_r * G_q] for the pairs they join.  Returns the
+    valid anchors only, plus the join's counts and flags."""
     G_r, Sr = refs.kmers.shape
     G_q, Sq = queries.kmers.shape
     C = queries.contig_lengths.shape[1]
@@ -571,7 +612,8 @@ def _block_join(refs: DeviceSketch, queries: DeviceSketch, cfg: ChainConfig,
                           U32_SENTINEL).reshape(-1)
     # per-seed payload words:
     #   ref:   p1 = in-contig position, p2 = g<<15 | rcid<<1 | strand
-    #   query: p1 = qpos<<1 | strand,   p2 = qi*NF + fragment (-1 if >= NF)
+    #   query: p1 = qpos<<1 | strand,   p2 = qi*NF + fragment
+    #                                         (-1 - qi if fragment >= NF)
     g_id = torch.arange(NR, device=dev, dtype=i64) // Sr
     r_p1 = refs.positions.reshape(-1).to(i64)
     r_p2 = (g_id << 15) | (refs.contig_ids.reshape(-1).to(i64) << 1) | \
@@ -581,7 +623,7 @@ def _block_join(refs: DeviceSketch, queries: DeviceSketch, cfg: ChainConfig,
     q_pos = queries.positions.reshape(-1).to(i64)
     frag = q_frag_offs.reshape(-1)[qi_id * (C + 1) + q_cid] + q_pos // fl
     q_p1 = (q_pos << 1) | queries.strands.reshape(-1).to(i64)
-    q_p2 = torch.where(frag < NF, qi_id * NF + frag, -1)
+    q_p2 = torch.where(frag < NF, qi_id * NF + frag, -1 - qi_id)
 
     kmer = torch.cat([r_kmers, q_kmers])
     tag_q = torch.arange(n, device=dev) >= NR
@@ -603,24 +645,20 @@ def _block_join(refs: DeviceSketch, queries: DeviceSketch, cfg: ChainConfig,
     zero = torch.zeros((), dtype=i64, device=dev)
     rc = torch.where(tag_s, r_excl - r_excl[run_start], zero)
     ok = tag_s & (kmer_s != U32_SENTINEL) & (rc > 0)
-    want = int(rc[ok].sum())
+    over = ok & (p2_s < 0)
+    want, n_over = _pool_counts(ok, over, rc)
     total = min(want, total_anchors)
-
-    # expansion: output slot t belongs to the ok entry whose run of rc
-    # slots covers t; j is t's rank inside that run
-    src_ok = torch.nonzero(ok).flatten()
-    cnt = rc[src_ok]
-    cend = torch.cumsum(cnt, 0)
-    t = torch.arange(total, device=dev, dtype=i64)
-    k = torch.searchsorted(cend, t, right=True)
-    src = src_ok[k]
-    j = t - (cend[k] - cnt[k])
-    r_idx = run_start[src] + j
+    src, r_idx = _expand_runs(ok, rc, run_start, total)
 
     q1, q2 = p1_s[src], p2_s[src]
     r1, r2 = p1_s[r_idx], p2_s[r_idx]
     valid = q2 >= 0
     g = r2 >> 15
+    frag_over = torch.zeros(G_r * G_q, dtype=torch.bool, device=dev)
+    if n_over:
+        # pair g*G_q + qi, with qi = -1 - p2 of a seed past NF
+        src_o, r_o = _expand_runs(over, rc, run_start, n_over)
+        frag_over[(p2_s[r_o] >> 15) * G_q - 1 - p2_s[src_o]] = True
     return dict(
         qpos=(q1 >> 1)[valid],
         rowid=(g * (G_q * NF) + q2)[valid],
@@ -629,6 +667,7 @@ def _block_join(refs: DeviceSketch, queries: DeviceSketch, cfg: ChainConfig,
         rev=((q1 & 1) != (r2 & 1))[valid],
         n_anchors=total,
         anchors_overflow=want > total_anchors,
+        frag_overflow=frag_over,
     )
 
 
@@ -642,7 +681,9 @@ def chain_block(refs: DeviceSketch, queries: DeviceSketch, *,
     kernel launch.  Returns a dict of [G_r, G_q] tensors.
 
     ``total_anchors`` is the anchor budget of the WHOLE block (default:
-    the per-pair budget times the number of pairs).
+    the per-pair budget times the number of pairs).  ``frag_overflow``
+    flags the pairs that ``max_fragments`` truncated, on the query or the
+    reference side (``engine.batch.check_overflow`` raises on it).
     """
     _check_supported(cfg)
     fl = cfg.fragment_length
@@ -672,7 +713,9 @@ def _chain_anchors(refs: DeviceSketch, queries: DeviceSketch, a: dict,
     ONE chain-DP launch, post-DP statistics.  ``a`` holds the join's
     valid anchors (rowid = pair*NF + query fragment); pair p chains
     ``refs[tail_r[p]]`` against ``queries[tail_q[p]]``.  Returns a dict
-    of [P] tensors."""
+    of [P] tensors; ``frag_overflow`` joins the join's query-side flag
+    (``a["frag_overflow"]``) and the post-DP's reference-side one, so it
+    means what it means on :func:`chain_pairs`."""
     fl = cfg.fragment_length
     NF = budgets.max_fragments
     PF = budgets.max_anchors_per_fragment
@@ -722,6 +765,7 @@ def _chain_anchors(refs: DeviceSketch, queries: DeviceSketch, a: dict,
     out["n_anchors"] = (bounds[1:] - bounds[:-1]).to(torch.int32)
     out["anchors_overflow"] = torch.full(
         (P,), a["anchors_overflow"], dtype=torch.bool, device=dev)
+    out["frag_overflow"] = a["frag_overflow"] | out["frag_overflow"]
     return out
 
 
@@ -750,9 +794,11 @@ def _triangle_self_join(gs: DeviceSketch, cfg: ChainConfig,
     Unlike ``_block_join``, an occurrence whose query fragment lies past
     NF takes no pool slots: it is dropped BEFORE the expansion is counted
     (the JAX join's ``ok`` tests it), so it counts toward neither the pool
-    nor ``anchors_overflow``.  Anchors come out in (source, j) order, so a
-    pool clipped at ``total_anchors`` keeps the JAX package's anchors.
-    Returns the anchors (all valid) and the join's counts."""
+    nor ``anchors_overflow``.  Such occurrences are expanded on the side,
+    only to set ``frag_overflow`` [G*(G-1)/2] for the pairs they would
+    have joined.  Anchors come out in (source, j) order, so a pool
+    clipped at ``total_anchors`` keeps the JAX package's anchors.
+    Returns the anchors (all valid) and the join's counts and flags."""
     G, S = gs.kmers.shape
     C = gs.contig_lengths.shape[1]
     fl = cfg.fragment_length
@@ -786,24 +832,24 @@ def _triangle_self_join(gs: DeviceSketch, cfg: ChainConfig,
     gchg[1:] |= (gcs_s[1:] >> 15) != (gcs_s[:-1] >> 15)
     gfirst = torch.nonzero(gchg).flatten()[torch.cumsum(gchg, 0) - 1]
     rc = gfirst - run_start
-    ok = (kmer_s != U32_SENTINEL) & (rc > 0) & (fragw_s >= 0)
-    want = int(rc[ok].sum())
+    joins = (kmer_s != U32_SENTINEL) & (rc > 0)
+    ok = joins & (fragw_s >= 0)
+    over = joins & (fragw_s < 0)
+    want, n_over = _pool_counts(ok, over, rc)
     total = min(want, total_anchors)
 
-    # expansion, as in _block_join: slot t belongs to the ok entry whose
-    # run of rc slots covers it, at rank j inside that run
-    src_ok = torch.nonzero(ok).flatten()
-    cnt = rc[src_ok]
-    cend = torch.cumsum(cnt, 0)
-    t = torch.arange(total, device=dev, dtype=i64)
-    k = torch.searchsorted(cend, t, right=True)
-    src = src_ok[k]
-    r_idx = run_start[src] + t - (cend[k] - cnt[k])
+    def pair_of(src, r_idx):
+        # strict-upper-triangle pair index (ref = the smaller genome id)
+        g_r, g_q = gcs_s[r_idx] >> 15, gcs_s[src] >> 15
+        return g_r * G - (g_r * (g_r + 1)) // 2 + (g_q - g_r - 1), g_q
 
+    src, r_idx = _expand_runs(ok, rc, run_start, total)
+    tri, g_q = pair_of(src, r_idx)
+    frag_over = torch.zeros((G * (G - 1)) // 2, dtype=torch.bool, device=dev)
+    if n_over:
+        tri_o, _ = pair_of(*_expand_runs(over, rc, run_start, n_over))
+        frag_over[tri_o] = True
     qgcs, rgcs = gcs_s[src], gcs_s[r_idx]
-    g_r, g_q = rgcs >> 15, qgcs >> 15
-    # strict-upper-triangle pair index (ref = the smaller genome id)
-    tri = g_r * G - (g_r * (g_r + 1)) // 2 + (g_q - g_r - 1)
     return dict(
         qpos=pos_s[src],
         rowid=tri * NF + fragw_s[src] - g_q * NF,
@@ -812,6 +858,7 @@ def _triangle_self_join(gs: DeviceSketch, cfg: ChainConfig,
         rev=(qgcs & 1) != (rgcs & 1),
         n_anchors=total,
         anchors_overflow=want > total_anchors,
+        frag_overflow=frag_over,
     )
 
 
@@ -897,14 +944,7 @@ def _join_anchors(ref: DeviceSketch, query: DeviceSketch, cfg: ChainConfig,
         (rc > 0) & (rc <= cap)
     want = int(rc[ok].sum())
     total = min(want, budgets.max_anchors)
-
-    src_ok = torch.nonzero(ok).flatten()
-    cnt = rc[src_ok]
-    cend = torch.cumsum(cnt, 0)
-    t = torch.arange(total, device=dev, dtype=i64)
-    k = torch.searchsorted(cend, t, right=True)
-    src = src_ok[k]
-    r_idx = run_start[src] + t - (cend[k] - cnt[k])
+    src, r_idx = _expand_runs(ok, rc, run_start, total)
     q_orig = orig_s[src]
     r_orig = orig_s[r_idx]
     return dict(
@@ -1031,11 +1071,11 @@ def _ref_grid_estimates(ref: DeviceSketch, keep_f, rmn_f, rmx_f, rcid_f,
     pair: kept chains' ref intervals (flat arrays) are split across ref
     fragments (``_ref_spans``), and each fragment's span denominator
     counts its contig's seeds inside.  Returns (frag_ani [NF], +inf at
-    uncovered slots, covered [NF])."""
+    uncovered slots, covered [NF], whether a span piece fell past NF)."""
     fl = cfg.fragment_length
     Cr = ref.contig_lengths.shape[0]
     _, r_frag_offs = _contig_layout(ref, fl)
-    span_lo, span_hi = _ref_spans(
+    span_lo, span_hi, dropped = _ref_spans(
         ref.contig_lengths.to(torch.int64)[None], r_frag_offs[None],
         keep_f[None], rmn_f[None], rmx_f[None],
         rcid_f.clamp(0, Cr - 1)[None], cfg, NF)
@@ -1043,7 +1083,7 @@ def _ref_grid_estimates(ref: DeviceSketch, keep_f, rmn_f, rmx_f, rcid_f,
     frag_cid = _frag_contig(r_frag_offs[None], NF, Cr)[0]
     denom = _count_seeds_in_spans(ref, keys, prefix, frag_cid, span_lo[0],
                                   span_hi[0])
-    return _frag_ani(numer_r, denom, cfg)
+    return (*_frag_ani(numer_r, denom, cfg), dropped[0])
 
 
 def _post_dp(ref: DeviceSketch, query: DeviceSketch, grid: dict, scores,
@@ -1054,7 +1094,9 @@ def _post_dp(ref: DeviceSketch, query: DeviceSketch, grid: dict, scores,
     by chain root (the JAX form).  Every coordinate stays contig-local:
     denominators count seeds by contig (``_count_seeds_in_spans``) and
     aligned fractions are per-contig interval unions, so genomes of any
-    total length and contigs up to 2^31 bp are exact."""
+    total length and contigs up to 2^31 bp are exact.  ``frag_overflow``
+    is the reference side's: a kept anchor or span past the ref grid's
+    NF fragments (``_pre_dp`` reports the query side's)."""
     fl = cfg.fragment_length
     NF = budgets.max_fragments
     PF = budgets.max_anchors_per_fragment
@@ -1133,14 +1175,17 @@ def _post_dp(ref: DeviceSketch, query: DeviceSketch, grid: dict, scores,
         numer_r = torch.zeros(NF + 1, dtype=i64, device=dev).index_add_(
             0, torch.where(ok_a, refrag, NF).reshape(-1),
             ok_a.to(i64).reshape(-1))[:NF]
-        fa_r, cov_r = _ref_grid_estimates(ref, k_all, k_rmin, k_rmax,
-                                          k_rcid, numer_r, cfg, NF)
+        fa_r, cov_r, span_over = _ref_grid_estimates(
+            ref, k_all, k_rmin, k_rmax, k_rcid, numer_r, cfg, NF)
         fa_all = torch.cat([frag_ani, fa_r])
         cov_all = torch.cat([covered, cov_r])
+        ref_over = (keep_a & ~ok_a).any() | span_over
     else:
         fa_all, cov_all = frag_ani, covered
+        ref_over = torch.zeros((), dtype=torch.bool, device=dev)
     out = {k: v_[0] for k, v_ in
            _pooled_estimators(fa_all[None], cov_all[None], cfg).items()}
+    out["frag_overflow"] = ref_over
 
     # ---- aligned fractions: per-contig unions of the kept chains ----
     q_clens = query.contig_lengths.to(i64)
@@ -1191,7 +1236,10 @@ def chain_pairs(refs: DeviceSketch, queries: DeviceSketch, *,
     out = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
     out["n_anchors"] = torch.tensor(n_anchors, dtype=torch.int32, device=dev)
     out["anchors_overflow"] = torch.tensor(anchors_overflow, device=dev)
-    out["frag_overflow"] = torch.tensor(frag_overflow, device=dev)
+    # the query side's (the grid build dropped anchors) or the reference
+    # side's (the post-DP dropped kept anchors or spans)
+    out["frag_overflow"] = torch.tensor(frag_overflow, device=dev) | \
+        out["frag_overflow"]
     return out
 
 

@@ -67,11 +67,16 @@ def _port(stack):
                                      device="cpu").device
 
 
-def _assert_outputs_equal(got, want, atol=1e-6):
+def _assert_outputs_equal(got, want, atol=1e-6, ref_overflow=None):
+    """Every key equal to JAX's; ``frag_overflow`` is JAX's query-side flag
+    ORed with ``ref_overflow``, the pairs whose reference grid the port
+    flags and JAX truncates silently."""
     assert set(got) == set(want)
     for key, w in want.items():
         g = got[key].numpy()
         w = np.asarray(w)
+        if key == "frag_overflow" and ref_overflow is not None:
+            w = w | np.asarray(ref_overflow)
         assert g.shape == w.shape and g.dtype == w.dtype, key
         if key in FLOAT_KEYS:
             np.testing.assert_allclose(g, w, rtol=0, atol=atol, err_msg=key)
@@ -124,7 +129,13 @@ def test_chain_pairs_matches_jax(family):
                           tstack.map(lambda x: x[torch.tensor(qi)]),
                           cfg=tch.ChainConfig(),
                           budgets=tch.EngineBudgets(**SIZES))
-    _assert_outputs_equal(got, want)
+    # pair 3's reference is the 300-contig draft: 300 fragments, past
+    # max_fragments = 64, so its reference grid drops kept anchors; JAX
+    # drops them too and reports nothing there
+    assert not bool(want["frag_overflow"][3])
+    _assert_outputs_equal(got, want,
+                          ref_overflow=[False, False, False, True, False,
+                                        False])
     n = got["n_anchors"].numpy()
     assert (n[[0, 1, 3, 4, 5]] > 0).all() and n[2] == 0
     assert (got["ani_mean"].numpy()[[0, 1, 3, 4, 5]] > 0.9).all()

@@ -39,6 +39,9 @@ BUDGETS = dict(max_anchors=2048, max_fragments=64,
                max_anchors_per_fragment=128)
 FLOAT_KEYS = ("ani_mean", "ani_robust", "ani_median", "af_query", "af_ref")
 KW = dict(anchors_per_pair=2048)
+# fragments of 5 kb: each 20 kb genome has 4, two past this budget
+FRAG_CFG = dict(fragment_length=5_000)
+FRAG_BUDGETS = dict(BUDGETS, max_fragments=2)
 
 
 def _fields(sketches) -> dict:
@@ -86,8 +89,8 @@ def with_giant(family32):
 @pytest.fixture(scope="module")
 def port(family32, with_giant):
     """The port's triangles on 4 ranks ((4, 1) and (2, 2) meshes)."""
-    b32, b29, bg = (_fields(s) for s in (family32, family32[:29],
-                                         with_giant))
+    b32, b29, b8, bg = (_fields(s) for s in (family32, family32[:29],
+                                             family32[:8], with_giant))
     jobs = {
         ("sharded", 32, (4, 1)): ("triangle", ((4, 1), "sharded_triangle",
                                                b32, BUDGETS,
@@ -103,6 +106,11 @@ def port(family32, with_giant):
             (2, 2), "sharded_triangle", bg, BUDGETS, KW)),
         ("ring", "giant", (2, 2)): ("triangle", (
             (2, 2), "ring_triangle", bg, BUDGETS, KW)),
+        ("sharded", "frag", (2, 2)): ("triangle_error", (
+            (2, 2), "sharded_triangle", b8, FRAG_BUDGETS, dict(KW, block=4),
+            FRAG_CFG)),
+        ("ring", "frag", (2, 2)): ("triangle_error", (
+            (2, 2), "ring_triangle", b8, FRAG_BUDGETS, KW, FRAG_CFG)),
     }
     ranks = tdist.launch(worker.run_all, 4, (jobs,), device="cpu",
                          timeout=400)
@@ -134,9 +142,14 @@ def _assert_same(got, want, single):
     np.testing.assert_array_equal(ri, wri)
     np.testing.assert_array_equal(qi, wqi)
     np.testing.assert_array_equal(ri, single[0])
-    assert set(out) == set(wout)
-    for key, val in out.items():
-        w = np.asarray(wout[key])
+    # the port's packed tiles add frag_overflow, which the JAX mesh
+    # triangle has only from its giant pairs: every genome fits here
+    assert set(out) == set(wout) | {"frag_overflow"}
+    np.testing.assert_array_equal(
+        out["frag_overflow"], wout.get("frag_overflow",
+                                       np.zeros(len(ri), bool)))
+    for key, w in wout.items():
+        val, w = out[key], np.asarray(w)
         if np.issubdtype(w.dtype, np.floating):
             np.testing.assert_allclose(val, w, rtol=0, atol=1e-6,
                                        err_msg=key)
@@ -185,6 +198,22 @@ def test_triangle_with_giant_genome_matches_jax(with_giant, port, single,
     got = port[(fn.split("_")[0], "giant", (2, 2))]
     assert len(got[0]) == 8 * 7 // 2
     _assert_same(got, want, single("giant"))
+
+
+@pytest.mark.parametrize("fn", ["sharded_triangle", "ring_triangle"])
+def test_frag_budget_overflow_raises_where_jax_is_silent(family32, port, fn):
+    """Genomes past ``max_fragments``: every rank of the port's mesh
+    triangle raises through ``check_overflow`` (the tiles' planes carry
+    ``frag_overflow``); the JAX mesh triangle returns results."""
+    msg = port[(fn.split("_")[0], "frag", (2, 2))]
+    assert msg is not None and "fragment budget overflow" in msg
+    kw = dict(KW, block=4) if fn == "sharded_triangle" else KW
+    ri, _, out = getattr(jax_dist, fn)(
+        stack_sketches(family32[:8]),
+        jax_make_mesh(2, 2, devices=jax.devices()[:4]),
+        cfg=dataclasses.replace(CFG, **FRAG_CFG),
+        budgets=EngineBudgets(**FRAG_BUDGETS), **kw)
+    assert len(ri) == 28 and "frag_overflow" not in out
 
 
 def test_ring_block_limit_raises_as_jax(family32):

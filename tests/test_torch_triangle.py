@@ -65,8 +65,15 @@ def _port_sketch(h):
                                      h.contig_names, h.lengths, device="cpu")
 
 
-def _assert_outputs_equal(got: dict, want: dict, shape):
-    assert set(got) == set(want)
+def _assert_outputs_equal(got: dict, want: dict, shape, frag_overflow=None):
+    """Every key of JAX's equal, and the port's ``frag_overflow`` equal to
+    ``frag_overflow`` (by default JAX's where a path of it has the key,
+    else all False: the JAX packed paths lack it)."""
+    assert set(got) == set(want) | {"frag_overflow"}
+    if frag_overflow is None:
+        frag_overflow = want.get("frag_overflow", np.zeros(shape, bool))
+    np.testing.assert_array_equal(np.asarray(got["frag_overflow"]),
+                                  np.asarray(frag_overflow))
     for key, w in want.items():
         g = got[key]
         g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
@@ -81,7 +88,8 @@ def _assert_outputs_equal(got: dict, want: dict, shape):
 
 # (total_anchors, max_fragments): the default pool; a pool clipped
 # mid-stream; NF = 3, past which the multi-contig genome's 4th fragment
-# (its entries as a query) lies; and both together
+# (its entries as a query) lies, so its pairs as the query set
+# frag_overflow as JAX chain_pairs sets it; and both together
 CASES = {"default": (None, 64), "clipped": (1500, 64),
          "frag_overflow": (None, 3), "clipped_frag_overflow": (1500, 3)}
 
@@ -96,7 +104,14 @@ def test_chain_triangle_matches_jax(family, case):
     got = chain_triangle(_port_stack(family), cfg=ChainConfig(),
                          budgets=EngineBudgets(**sizes),
                          total_anchors=total_anchors)
-    _assert_outputs_equal(got, want, (10,))
+    ri, qi = triu_pairs(5)
+    pairs = jax.device_get(jax_chain.chain_pairs(
+        jax_batch.take_sketch(family, ri), jax_batch.take_sketch(family, qi),
+        cfg=JaxChainConfig(), budgets=JaxBudgets(**sizes)))
+    flags = np.asarray(pairs["frag_overflow"])
+    _assert_outputs_equal(got, want, (10,), frag_overflow=flags)
+    # the multi-contig genome (index 3) as the query of 3 pairs
+    assert flags.sum() == (3 if nf == 3 else 0)
     assert got["n_anchors"].sum() > 0 and got["n_chains"].sum() > 0
     clipped = total_anchors is not None
     assert bool(got["anchors_overflow"].all()) == clipped

@@ -92,6 +92,20 @@ def triangle(shape, fn, batch, budgets, kw):
     return ri, qi, out
 
 
+def triangle_error(shape, fn, batch, budgets, kw, cfg_kw):
+    """The ``RuntimeError`` message of ``triangle`` under ``ChainConfig(
+    **cfg_kw)``, or None if it returned."""
+    from pyskani_tpu_torch.parallel import dist
+    from pyskani_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(*shape, device="cpu")
+    try:
+        getattr(dist, fn)(_stack(batch), mesh, cfg=ChainConfig(**cfg_kw),
+                          budgets=EngineBudgets(**budgets), **kw)
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
 def run_all(jobs):
     """Run the jobs ({key: (function name, args)}) in order; {key: result}.
     The ranks of a test share the machine with the other tests: one

@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path on one GPU and check it.
 
     python3 chip_smoke.py [--seed 0] [--refs 512] [--queries 8] [--out FILE]
-                          [--profile] [--overlap]
+                          [--overlap]
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -372,13 +372,6 @@ def phase_search(result, torch, dev, args, rec):
         f"share {screened_out:.4f}; chain-DP launches {launches}, "
         f"grid shapes [R, PF] {shapes}")
 
-    if args.profile:
-        g_prof = mutate(rng, roots[q_fams[0]], 0.01, 0.001).tobytes()
-        result["profile"] = dict(
-            query=_profile(torch, lambda: db.query(
-                queries[-1][0], queries[-1][1], learned_ani=False)),
-            sketch=_profile(torch, lambda: db._sketch("profiled", [g_prof])))
-
     # reference check on a small input: the first query against two of its
     # family's sketches, chained by the CPU port
     cpu = pyskani_tpu_torch.Database(device="cpu")
@@ -406,47 +399,6 @@ def phase_search(result, torch, dev, args, rec):
         dp_launches=launches, dp_shapes=[list(s) for s in shapes],
         cpu_check_max_diff=worst)
     return launches, db, queries
-
-
-def _profile(torch, fn):
-    """Device busy time, wall time, the top device activities (kernels,
-    copies) of one call, and the host time spent inside PyTorch ops (the
-    rest of the wall is Python and numpy)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    if not by_name:
-        raise RuntimeError("the profiler recorded no device activity")
-    busy = sum(us for us, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    dp_us = sum(us for k, (us, _) in by_name.items() if "chain_dp" in k)
-    host_ops_us = sum(e.self_cpu_time_total for e in prof.key_averages())
-    out = dict(wall_us=wall_us, device_busy_us=busy,
-               idle_share=1.0 - busy / wall_us,
-               device_launches=sum(n for _, n in by_name.values()),
-               chain_dp_us=dp_us, host_ops_us=host_ops_us,
-               top=[dict(name=k[:80], device_us=us, count=n)
-                    for k, (us, n) in top])
-    log(f"[profile] wall {wall_us / 1e3:.2f} ms, device busy "
-        f"{busy / 1e3:.2f} ms in {out['device_launches']} device "
-        f"activities, idle share {out['idle_share']:.3f}; chain-DP kernel "
-        f"{dp_us / 1e3:.4f} ms; host inside PyTorch ops "
-        f"{host_ops_us / 1e3:.2f} ms")
-    for t in out["top"][:8]:
-        log(f"[profile]   {t['device_us'] / 1e3:9.3f} ms x{t['count']:5d} "
-            f"{t['name']}")
-    return out
 
 
 class Recorder:
@@ -1069,12 +1021,6 @@ def phase_triangle(result, torch, dev, args, rec, db):
     fam_launches = dp_mod.chain_dp.launches
     per_path = {p: rec.launches_of("triangle", p) - base[p]
                 for p in Recorder.PATHS}
-    if args.profile:
-        prof = result.setdefault("profile", {})
-        prof["triangle"] = _profile(torch, lambda: eb.triangle(sketches, cfg))
-        stack8 = [(n, [g]) for n, g in zip(names[:8], genomes[:8])]
-        prof["sketch_many"] = _profile(
-            torch, lambda: pyskani_tpu_torch.Database().sketch_many(stack8))
     rec.keep = True
     rec.phase = None
     if per_path != {"chain_block": 1, "chain_pairs": 0, "chain_triangle": 2} \
@@ -2243,9 +2189,12 @@ def phase_generic_k(result, torch, dev, args, rec):
         len(c[0]) for _, c in items[:8])), refs_screened=float(len(items)),
         screen_passed=float(passed[0]), pairs_chained=float(passed[0]))
     got = {key: snap["counters"].get(key) for key in want}
-    if got != want or len(prof_hits) != per or snap["calls"] != dict(
+    # the JAX package's scopes; the port's own spans nest inside them
+    scopes = ("sketch", "screen", "chain")
+    if got != want or len(prof_hits) != per or {
+            k: snap["calls"].get(k) for k in scopes} != dict(
             sketch=2, screen=1, chain=1) or not all(
-            t > 0 for t in snap["timers_s"].values()):
+            snap["timers_s"].get(k, 0) > 0 for k in scopes):
         raise AssertionError(f"profiling snapshot {snap} != {want}")
     rep["profile_snapshot"] = snap
     log(f"[generic_k] profiling on (one query, one sketch_many of 8): "
@@ -2669,8 +2618,6 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--refs", type=int, default=512)
     ap.add_argument("--queries", type=int, default=8)
-    ap.add_argument("--profile", action="store_true",
-                    help="also profile one query and one sketch")
     ap.add_argument("--overlap", action="store_true",
                     help="also time the streamed store's queries against "
                          "a double-buffered stream")

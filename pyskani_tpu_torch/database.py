@@ -274,20 +274,21 @@ class Database:
 
     def _register_sketch(self, host: HostSketch) -> None:
         """Register a sketch (made here or by ``convert.sketch_from_numpy``)."""
-        if host.device.device != self._device:
-            host = dataclasses.replace(
-                host, device=host.device.map(lambda t: t.to(self._device)))
-        dev = host.device
-        m = int(dev.n_markers)
-        self._markers.append(MarkerSketch(
-            name=host.name, total_len=host.total_len,
-            contig_names=host.contig_names,
-            contig_lengths=list(host.lengths),
-            hi=dev.markers_hi[:m].cpu().numpy().astype(np.uint32),
-            lo=dev.markers_lo[:m].cpu().numpy().astype(np.uint32)))
-        self._screen_cache = None
-        self._stack_cache = None
-        self._storage.store(host, self._params)
+        with profiling.scope("register"):
+            if host.device.device != self._device:
+                host = dataclasses.replace(host, device=host.device.map(
+                    lambda t: t.to(self._device)))
+            dev = host.device
+            m = int(dev.n_markers)
+            self._markers.append(MarkerSketch(
+                name=host.name, total_len=host.total_len,
+                contig_names=host.contig_names,
+                contig_lengths=list(host.lengths),
+                hi=dev.markers_hi[:m].cpu().numpy().astype(np.uint32),
+                lo=dev.markers_lo[:m].cpu().numpy().astype(np.uint32)))
+            self._screen_cache = None
+            self._stack_cache = None
+            self._storage.store(host, self._params)
 
     def _marker_matrix(self):
         """Stacked, padded marker matrix [N, M] on the device."""

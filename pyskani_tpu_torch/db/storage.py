@@ -15,6 +15,8 @@ markers, int32 positions, contig ids and lengths, bool strands) beside a
 JSON manifest; ``markers.bin`` is an npz of every genome's markers beside
 a JSON manifest of the sketch parameters and genome metadata.  The port's
 int64 carriers of u32 values are cast back to uint32 before writing.
+With profiling on, a sketch's encoding is the span ``storage/encode`` and
+its decoding ``storage/decode``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from ..ops.sketch import (I32_SENTINEL, U32_MAX, U32_SENTINEL,
                           contig_budget_for, marker_budget_for,
                           seed_budget_for)
 from ..params import SketchParams
+from ..utils import profiling
 
 FORMAT_VERSION = 1
 _SEED_KEYS = ("kmers", "positions", "contig_ids", "strands")
@@ -51,78 +54,83 @@ def _params_from(p: dict) -> SketchParams:
 
 def sketch_to_bytes(host_sketch, params: SketchParams) -> bytes:
     """Serialize a sketch (trimmed to its true counts) with its params."""
-    dev = host_sketch.device
-    n, m, nc = int(dev.n_seeds), int(dev.n_markers), int(dev.n_contigs)
+    with profiling.scope("storage/encode"):
+        dev = host_sketch.device
+        n, m, nc = int(dev.n_seeds), int(dev.n_markers), int(dev.n_contigs)
 
-    def host(field, rows):
-        return getattr(dev, field)[:rows].cpu().numpy().astype(
-            NUMPY_DTYPES[field])
+        def host(field, rows):
+            return getattr(dev, field)[:rows].cpu().numpy().astype(
+                NUMPY_DTYPES[field])
 
-    meta = dict(
-        version=FORMAT_VERSION,
-        name=host_sketch.name,
-        contig_names=host_sketch.contig_names,
-        total_len=min(int(dev.total_len), U32_MAX),
-        params=_params_dict(params),
-    )
-    buf = io.BytesIO()
-    np.savez(
-        buf,
-        meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
-        **{f: host(f, n) for f in _SEED_KEYS},
-        **{f: host(f, m) for f in _MARKER_KEYS},
-        contig_lengths=host("contig_lengths", nc),
-    )
-    return buf.getvalue()
+        meta = dict(
+            version=FORMAT_VERSION,
+            name=host_sketch.name,
+            contig_names=host_sketch.contig_names,
+            total_len=min(int(dev.total_len), U32_MAX),
+            params=_params_dict(params),
+        )
+        buf = io.BytesIO()
+        np.savez(
+            buf,
+            meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
+            **{f: host(f, n) for f in _SEED_KEYS},
+            **{f: host(f, m) for f in _MARKER_KEYS},
+            contig_lengths=host("contig_lengths", nc),
+        )
+        return buf.getvalue()
 
 
 def sketch_from_bytes(data: bytes, device="cpu"):
     """Deserialize into (HostSketch on ``device``, SketchParams), padded
     to the default budgets of its length, with the own multiplicities and
     the position-sorted view recomputed as the JAX package does."""
-    with np.load(io.BytesIO(data)) as z:
-        meta = json.loads(bytes(z["meta"]).decode())
-        kmers, positions = z["kmers"], z["positions"]
-        contig_ids, strands = z["contig_ids"], z["strands"]
-        markers_hi, markers_lo = z["markers_hi"], z["markers_lo"]
-        contig_lengths = z["contig_lengths"]
+    with profiling.scope("storage/decode"):
+        with np.load(io.BytesIO(data)) as z:
+            meta = json.loads(bytes(z["meta"]).decode())
+            kmers, positions = z["kmers"], z["positions"]
+            contig_ids, strands = z["contig_ids"], z["strands"]
+            markers_hi, markers_lo = z["markers_hi"], z["markers_lo"]
+            contig_lengths = z["contig_lengths"]
 
-    params = _params_from(meta["params"])
-    total = meta["total_len"]
-    n, m = len(kmers), len(markers_hi)
-    sb = max(seed_budget_for(total, params.c), ((n + 1023) // 1024) * 1024)
-    mb = max(marker_budget_for(total, params.marker_c),
-             ((m + 511) // 512) * 512)
+        params = _params_from(meta["params"])
+        total = meta["total_len"]
+        n, m = len(kmers), len(markers_hi)
+        sb = max(seed_budget_for(total, params.c),
+                 ((n + 1023) // 1024) * 1024)
+        mb = max(marker_budget_for(total, params.marker_c),
+                 ((m + 511) // 512) * 512)
 
-    def pad(arr, size, fill):
-        out = np.full(size, fill, dtype=arr.dtype)
-        out[:len(arr)] = arr
-        return out
+        def pad(arr, size, fill):
+            out = np.full(size, fill, dtype=arr.dtype)
+            out[:len(arr)] = arr
+            return out
 
-    # own multiplicity: run lengths over the kmer-sorted table
-    own_mult = (np.searchsorted(kmers, kmers, side="right") -
-                np.searchsorted(kmers, kmers, side="left")).astype(np.int32)
-    order = np.lexsort((positions, contig_ids))
-    fields = dict(
-        kmers=pad(kmers, sb, U32_SENTINEL),
-        positions=pad(positions, sb, np.int32(I32_SENTINEL)),
-        contig_ids=pad(contig_ids, sb, np.int32(I32_SENTINEL)),
-        strands=pad(strands, sb, False),
-        own_mult=pad(own_mult, sb, np.int32(0)),
-        p_positions=pad(positions[order], sb, np.int32(I32_SENTINEL)),
-        p_contig_ids=pad(contig_ids[order], sb, np.int32(I32_SENTINEL)),
-        p_own_mult=pad(own_mult[order], sb, np.int32(0)),
-        markers_hi=pad(markers_hi, mb, U32_SENTINEL),
-        markers_lo=pad(markers_lo, mb, U32_SENTINEL),
-        n_seeds=n, n_markers=m,
-        contig_lengths=pad(contig_lengths.astype(np.int32),
-                           contig_budget_for(len(contig_lengths)), 0),
-        n_contigs=len(contig_lengths),
-        total_len=total,
-    )
-    host = sketch_from_numpy(fields, meta["name"], meta["contig_names"],
-                             [int(x) for x in contig_lengths], device=device)
-    return host, params
+        # own multiplicity: run lengths over the kmer-sorted table
+        own_mult = (np.searchsorted(kmers, kmers, side="right") -
+                    np.searchsorted(kmers, kmers, side="left")
+                    ).astype(np.int32)
+        order = np.lexsort((positions, contig_ids))
+        fields = dict(
+            kmers=pad(kmers, sb, U32_SENTINEL),
+            positions=pad(positions, sb, np.int32(I32_SENTINEL)),
+            contig_ids=pad(contig_ids, sb, np.int32(I32_SENTINEL)),
+            strands=pad(strands, sb, False),
+            own_mult=pad(own_mult, sb, np.int32(0)),
+            p_positions=pad(positions[order], sb, np.int32(I32_SENTINEL)),
+            p_contig_ids=pad(contig_ids[order], sb, np.int32(I32_SENTINEL)),
+            p_own_mult=pad(own_mult[order], sb, np.int32(0)),
+            markers_hi=pad(markers_hi, mb, U32_SENTINEL),
+            markers_lo=pad(markers_lo, mb, U32_SENTINEL),
+            n_seeds=n, n_markers=m,
+            contig_lengths=pad(contig_lengths.astype(np.int32),
+                               contig_budget_for(len(contig_lengths)), 0),
+            n_contigs=len(contig_lengths),
+            total_len=total,
+        )
+        host = sketch_from_numpy(fields, meta["name"], meta["contig_names"],
+                                 [int(x) for x in contig_lengths],
+                                 device=device)
+        return host, params
 
 
 # --------------------------------------------------------------------------

@@ -24,6 +24,7 @@ from ..ops.chain import (ChainConfig, EngineBudgets, chain_block,
 from ..ops.sketch import (FIELDS, I32_SENTINEL, U32_SENTINEL, DeviceSketch,
                           HostSketch, contig_budget_for, pad_to,
                           round_up)
+from ..utils import profiling
 
 # padding of each per-seed / per-marker field
 _SEED_FILL = dict(kmers=U32_SENTINEL, positions=I32_SENTINEL,
@@ -221,10 +222,23 @@ def triangle(sketches: List[HostSketch], cfg: ChainConfig | None = None,
     Returns (ref_idx, query_idx, dict of numpy arrays) over the N(N-1)/2
     unordered pairs in ``np.triu_indices`` order.  A key that one path
     lacks reads 0 for the other paths' pairs, as in the JAX package.
+
+    With profiling on, the call is the span ``triangle``, holding
+    ``triangle/stack``, one ``triangle/group`` per group, one
+    ``triangle/cross`` per tile, ``triangle/pairs_ani`` and
+    ``triangle/merge``.
     """
+    dev = sketches[0].device.device if sketches else None
+    with profiling.scope("triangle", dev):
+        return _triangle(sketches, cfg, budgets, block, anchors_per_pair,
+                         group)
+
+
+def _triangle(sketches, cfg, budgets, block, anchors_per_pair, group):
     cfg = cfg or ChainConfig()
     n = len(sketches)
-    batch = stack_sketches(sketches)
+    with profiling.scope("triangle/stack"):
+        batch = stack_sketches(sketches)
     if budgets is None:
         budgets = default_budgets(sketches, batch, cfg)
     group = max_triangle_group(budgets, min(group, n))
@@ -250,18 +264,20 @@ def triangle(sketches: List[HostSketch], cfg: ChainConfig | None = None,
         if len(gidx) < 2:
             # no pairs inside; the cross-group tiles cover its other pairs
             continue
-        out = chain_triangle(
-            take(gidx), cfg=cfg, budgets=budgets,
-            total_anchors=round_up(len(gidx) * (len(gidx) - 1) // 2 * app,
-                                   8192))
+        with profiling.scope("triangle/group", dev):
+            out = chain_triangle(
+                take(gidx), cfg=cfg, budgets=budgets,
+                total_anchors=round_up(
+                    len(gidx) * (len(gidx) - 1) // 2 * app, 8192))
         tri_r, tri_q = np.triu_indices(len(gidx), k=1)
         pending.append((gidx[tri_r], gidx[tri_q], out))
     fb = [(i, j) for i in range(n) for j in range(i + 1, n)
           if i in giant or j in giant]
     if fb:
         ri_f, qi_f = (np.array(x, np.int64) for x in zip(*fb))
-        pending.append((ri_f, qi_f, pairs_ani(batch, ri_f, qi_f, cfg=cfg,
-                                              budgets=budgets)))
+        with profiling.scope("triangle/pairs_ani", dev):
+            pending.append((ri_f, qi_f, pairs_ani(
+                batch, ri_f, qi_f, cfg=cfg, budgets=budgets)))
     for a in starts:
         ridx_g = pk[a:a + group]
         for b in starts:
@@ -276,24 +292,28 @@ def triangle(sketches: List[HostSketch], cfg: ChainConfig | None = None,
                         [ridx, np.full(block - len(ridx), ridx[0])])
                     qpad = np.concatenate(
                         [qidx, np.full(block - len(qidx), qidx[0])])
-                    out = chain_block(
-                        take(rpad), take(qpad), cfg=cfg, budgets=budgets,
-                        total_anchors=round_up(block * block * app, 8192))
+                    with profiling.scope("triangle/cross", dev):
+                        out = chain_block(
+                            take(rpad), take(qpad), cfg=cfg,
+                            budgets=budgets,
+                            total_anchors=round_up(block * block * app,
+                                                   8192))
                     rr, qq = np.meshgrid(ridx, qidx, indexing="ij")
                     pending.append((rr.reshape(-1), qq.reshape(-1), {
                         k: v[:len(ridx), :len(qidx)].reshape(-1)
                         for k, v in out.items()}))
 
-    mats = {}
-    for ridx, qidx, out in pending:
-        for key, val in out.items():
-            arr = val.cpu().numpy()
-            if key not in mats:
-                mats[key] = np.zeros((n, n), arr.dtype)
-            mats[key][ridx, qidx] = arr
-    ri, qi = np.triu_indices(n, k=1)
-    out = {k: v[ri, qi] for k, v in mats.items()}
-    check_overflow(out, budgets)
+    with profiling.scope("triangle/merge"):
+        mats = {}
+        for ridx, qidx, out in pending:
+            for key, val in out.items():
+                arr = val.cpu().numpy()
+                if key not in mats:
+                    mats[key] = np.zeros((n, n), arr.dtype)
+                mats[key][ridx, qidx] = arr
+        ri, qi = np.triu_indices(n, k=1)
+        out = {k: v[ri, qi] for k, v in mats.items()}
+        check_overflow(out, budgets)
     return ri, qi, out
 
 

@@ -11,6 +11,10 @@ On the card a chunk is stacked into pinned host buffers and copied with
 most of a streamed query and ``chain_block`` syncs with the host, so a
 worker thread that loads the next chunk while this one chains gained
 nothing on an H100 (``chip_smoke.py --overlap``, PERF.md).
+
+With profiling on, each chunk's load is the span ``stream/load``, its
+pinned stack and copy ``stream/stage`` and its ``chain_block``
+``stream/chain``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from ..ops.chain import ChainConfig, EngineBudgets, chain_block
 from ..ops.sketch import HostSketch
+from ..utils import profiling
 from .batch import stack_sketches_host
 
 
@@ -59,11 +64,14 @@ def stream_one_vs_many(load: Callable[[str], HostSketch], names: List[str],
     q1 = query.map(lambda x: x[None])
     outs = []
     for i in range(0, len(names), chunk):
-        hosts = [load(n) for n in names[i:i + chunk]]
+        with profiling.scope("stream/load"):
+            hosts = [load(n) for n in names[i:i + chunk]]
         hosts += [hosts[0]] * (chunk - len(hosts))
-        refs = stage_chunk(hosts, dev, seed_budget, marker_budget,
-                           contig_budget)
-        out = chain_block(refs, q1, cfg=cfg, budgets=budgets)
+        with profiling.scope("stream/stage"):
+            refs = stage_chunk(hosts, dev, seed_budget, marker_budget,
+                               contig_budget)
+        with profiling.scope("stream/chain", dev):
+            out = chain_block(refs, q1, cfg=cfg, budgets=budgets)
         outs.append({k: v[:, 0] for k, v in out.items()})
     P = len(names)
     return {k: torch.cat([o[k] for o in outs])[:P].cpu().numpy()

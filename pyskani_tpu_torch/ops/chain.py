@@ -29,6 +29,11 @@ is set, on every path, for a pair that lost anchors or spans to a
 fragment past ``max_fragments`` on either genome; the JAX package sets it
 on ``chain_pairs`` for the query side only, so its packed paths and its
 reference grids truncate a result silently.
+
+With profiling on (``utils/profiling.py``), each path's stages are the
+spans ``chain/join`` (the join), ``chain/grid`` (the anchor sorts and the
+DP grid), ``chain/dp`` (the kernel launch) and ``chain/post`` (the
+post-DP statistics).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import prng
 from .chain_dp import chain_dp
 from .sketch import I32_SENTINEL, U32_SENTINEL, DeviceSketch
@@ -699,7 +705,8 @@ def chain_block(refs: DeviceSketch, queries: DeviceSketch, *,
     dev = refs.kmers.device
 
     q_starts, q_frag_offs = _contig_layout(queries, fl)   # [G_q, C+1]
-    a = _block_join(refs, queries, cfg, total_anchors, q_frag_offs, NF)
+    with profiling.scope("chain/join", dev):
+        a = _block_join(refs, queries, cfg, total_anchors, q_frag_offs, NF)
     pair_ids = torch.arange(P, device=dev, dtype=torch.int64)
     out = _chain_anchors(refs, queries, a, q_starts, q_frag_offs,
                          pair_ids // G_q, pair_ids % G_q, cfg, budgets)
@@ -724,41 +731,45 @@ def _chain_anchors(refs: DeviceSketch, queries: DeviceSketch, a: dict,
     dev = refs.kmers.device
     i64 = torch.int64
 
-    # sort by (rowid<<14 | rcid, rpos, qpos<<2 | rev<<1 | 1): the tuple is
-    # unique per anchor, so the order is total.  Two stable passes: the
-    # payload first, then the (k1, k2) composite (k1, k2 < 2^31).
-    k1 = (a["rowid"] << 14) | a["rcid"]
-    payload = ((a["qpos"] << 2) | (a["rev"].to(i64) << 1) | 1) & _U32
-    o1 = torch.sort(payload, stable=True).indices
-    o2 = torch.sort(((k1 << 31) | a["rpos"])[o1], stable=True).indices
-    order = o1[o2]
-    k1_s = k1[order]
-    payload_s = payload[order]
-    rowid_s = k1_s >> 14
-    rcid_s = k1_s & 0x3FFF
-    rpos_s = a["rpos"][order]
-    qpos_s = payload_s >> 2
-    rev_s = (payload_s & 2) == 2
+    with profiling.scope("chain/grid", dev):
+        # sort by (rowid<<14 | rcid, rpos, qpos<<2 | rev<<1 | 1): the tuple is
+        # unique per anchor, so the order is total.  Two stable passes: the
+        # payload first, then the (k1, k2) composite (k1, k2 < 2^31).
+        k1 = (a["rowid"] << 14) | a["rcid"]
+        payload = ((a["qpos"] << 2) | (a["rev"].to(i64) << 1) | 1) & _U32
+        o1 = torch.sort(payload, stable=True).indices
+        o2 = torch.sort(((k1 << 31) | a["rpos"])[o1], stable=True).indices
+        order = o1[o2]
+        k1_s = k1[order]
+        payload_s = payload[order]
+        rowid_s = k1_s >> 14
+        rcid_s = k1_s & 0x3FFF
+        rpos_s = a["rpos"][order]
+        qpos_s = payload_s >> 2
+        rev_s = (payload_s & 2) == 2
 
-    frag_cid_tab = _frag_contig(q_frag_offs, NF, C)        # [G_q, NF]
-    rbits = rcid_bits_for(refs.contig_lengths.shape[1])
-    w1, w2 = _pack_grid_words(qpos_s, rpos_s, rcid_s, rev_s, rbits)
-    # positions past the packed word ranges would corrupt results: ref
-    # contigs >= 2^(32-rbits) bp, query contigs >= 2^30 bp, and query
-    # totals >= 2^30 bp (the post-DP works in genome-global coordinates)
-    pos_overflow = bool((rpos_s >= (1 << (32 - rbits))).any()) or \
-        bool((queries.contig_lengths.to(i64) >= (1 << 30)).any()) or \
-        bool((queries.total_len >= (1 << 30)).any())
-    R = P * NF
-    (w1g, w2g), row_bounds = _grid_from_sorted_stream(
-        rowid_s, ((w1, 0), (w2, 0)), R, PF)
+        frag_cid_tab = _frag_contig(q_frag_offs, NF, C)        # [G_q, NF]
+        rbits = rcid_bits_for(refs.contig_lengths.shape[1])
+        w1, w2 = _pack_grid_words(qpos_s, rpos_s, rcid_s, rev_s, rbits)
+        # positions past the packed word ranges would corrupt results: ref
+        # contigs >= 2^(32-rbits) bp, query contigs >= 2^30 bp, and query
+        # totals >= 2^30 bp (the post-DP works in genome-global coordinates)
+        pos_overflow = bool((rpos_s >= (1 << (32 - rbits))).any()) or \
+            bool((queries.contig_lengths.to(i64) >= (1 << 30)).any()) or \
+            bool((queries.total_len >= (1 << 30)).any())
+        R = P * NF
+        (w1g, w2g), row_bounds = _grid_from_sorted_stream(
+            rowid_s, ((w1, 0), (w2, 0)), R, PF)
 
-    grid = _dp_grid_from_words(w1g, w2g, rbits)
-    scores, roots = chain_dp(grid["qpos"], grid["rpos"], grid["meta"], cfg)
-    _, r_frag_offs = _contig_layout(refs, fl)
-    out = _post_dp_block(refs, queries, w1g, w2g, scores, roots, q_starts,
-                         q_frag_offs, cfg, budgets, tail_r, tail_q,
-                         r_frag_offs, frag_cid_tab, rbits)
+        grid = _dp_grid_from_words(w1g, w2g, rbits)
+    with profiling.scope("chain/dp", dev):
+        scores, roots = chain_dp(grid["qpos"], grid["rpos"], grid["meta"],
+                                 cfg)
+    with profiling.scope("chain/post", dev):
+        _, r_frag_offs = _contig_layout(refs, fl)
+        out = _post_dp_block(refs, queries, w1g, w2g, scores, roots,
+                             q_starts, q_frag_offs, cfg, budgets, tail_r,
+                             tail_q, r_frag_offs, frag_cid_tab, rbits)
     out["pos_overflow"] = torch.full((P,), pos_overflow, dtype=torch.bool,
                                      device=dev)
     bounds = row_bounds[torch.arange(P + 1, device=dev) * NF]
@@ -885,7 +896,9 @@ def chain_triangle(genomes: DeviceSketch, *, cfg: ChainConfig,
     dev = genomes.kmers.device
 
     q_starts, q_frag_offs = _contig_layout(genomes, cfg.fragment_length)
-    a = _triangle_self_join(genomes, cfg, total_anchors, q_frag_offs, NF)
+    with profiling.scope("chain/join", dev):
+        a = _triangle_self_join(genomes, cfg, total_anchors, q_frag_offs,
+                                NF)
     tri_r, tri_q = (torch.from_numpy(x).to(dev, torch.int64)
                     for x in triu_pairs(G))
     # every genome is a query, so the position checks cover them all
@@ -969,30 +982,34 @@ def _pre_dp(ref: DeviceSketch, query: DeviceSketch, cfg: ChainConfig,
     PF = budgets.max_anchors_per_fragment
     C = query.contig_lengths.shape[0]
     i32 = torch.int32
+    dev = ref.kmers.device
 
     _, q_frag_offs = _contig_layout(query, fl)
-    a = _join_anchors(ref, query, cfg, budgets)
-    frag = q_frag_offs[a["qcid"].clamp(0, C - 1)] + a["qpos"] // fl
-    # anchors of fragments past the grid budget are dropped by the grid
-    # build: check_overflow raises on it
-    frag_overflow = bool((frag >= NF).any())
+    with profiling.scope("chain/join", dev):
+        a = _join_anchors(ref, query, cfg, budgets)
+    with profiling.scope("chain/grid", dev):
+        frag = q_frag_offs[a["qcid"].clamp(0, C - 1)] + a["qpos"] // fl
+        # anchors of fragments past the grid budget are dropped by the
+        # grid build: check_overflow raises on it
+        frag_overflow = bool((frag >= NF).any())
 
-    # sort by (frag, rcid, rpos, qpos), unique per anchor: a stable pass
-    # by the low pair (rpos, qpos < 2^31), then by the high (rcid < 2^14).
-    # Positions stay contig-local, so there is no genome-total cap
-    o1 = torch.sort((a["rpos"] << 31) | a["qpos"], stable=True).indices
-    o2 = torch.sort(((frag << 14) | a["rcid"])[o1], stable=True).indices
-    order = o1[o2]
-    frag_s = frag[order]
-    rcid_s = a["rcid"][order]
-    rev_s = a["rev"][order].to(torch.int64)
-    frag_cid_tab = _frag_contig(q_frag_offs[None], NF, C)[0]
-    qcid_s = frag_cid_tab[frag_s.clamp(0, NF - 1)]
-    meta = (qcid_s << 17) | (rcid_s << 3) | (rev_s << 1) | 1
-    (qpos, rpos, meta), _ = _grid_from_sorted_stream(
-        frag_s, ((a["qpos"][order].to(i32), I32_SENTINEL),
-                 (a["rpos"][order].to(i32), I32_SENTINEL),
-                 (meta.to(i32), 0)), NF, PF)
+        # sort by (frag, rcid, rpos, qpos), unique per anchor: a stable
+        # pass by the low pair (rpos, qpos < 2^31), then by the high
+        # (rcid < 2^14).  Positions stay contig-local, so there is no
+        # genome-total cap
+        o1 = torch.sort((a["rpos"] << 31) | a["qpos"], stable=True).indices
+        o2 = torch.sort(((frag << 14) | a["rcid"])[o1], stable=True).indices
+        order = o1[o2]
+        frag_s = frag[order]
+        rcid_s = a["rcid"][order]
+        rev_s = a["rev"][order].to(torch.int64)
+        frag_cid_tab = _frag_contig(q_frag_offs[None], NF, C)[0]
+        qcid_s = frag_cid_tab[frag_s.clamp(0, NF - 1)]
+        meta = (qcid_s << 17) | (rcid_s << 3) | (rev_s << 1) | 1
+        (qpos, rpos, meta), _ = _grid_from_sorted_stream(
+            frag_s, ((a["qpos"][order].to(i32), I32_SENTINEL),
+                     (a["rpos"][order].to(i32), I32_SENTINEL),
+                     (meta.to(i32), 0)), NF, PF)
     grid = {"qpos": qpos, "rpos": rpos, "meta": meta}
     return grid, a["n_anchors"], a["anchors_overflow"], frag_overflow
 
@@ -1225,14 +1242,16 @@ def chain_pairs(refs: DeviceSketch, queries: DeviceSketch, *,
     anchors_overflow = [p[2] for p in pre]
     frag_overflow = [p[3] for p in pre]
     del pre
-    scores, roots = chain_dp(merged["qpos"], merged["rpos"], merged["meta"],
-                             cfg)
+    with profiling.scope("chain/dp", dev):
+        scores, roots = chain_dp(merged["qpos"], merged["rpos"],
+                                 merged["meta"], cfg)
     outs = []
     for i in range(B):
         rows = slice(i * NF, (i + 1) * NF)
-        outs.append(_post_dp(_take(refs, i), _take(queries, i),
-                             {k: g[rows] for k, g in merged.items()},
-                             scores[rows], roots[rows], cfg, budgets))
+        with profiling.scope("chain/post", dev):
+            outs.append(_post_dp(_take(refs, i), _take(queries, i),
+                                 {k: g[rows] for k, g in merged.items()},
+                                 scores[rows], roots[rows], cfg, budgets))
     out = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
     out["n_anchors"] = torch.tensor(n_anchors, dtype=torch.int32, device=dev)
     out["anchors_overflow"] = torch.tensor(anchors_overflow, device=dev)

@@ -36,6 +36,10 @@ doubling steps (:func:`_rolling_windows`); any other pair builds each
 window by log-doubling (:func:`_windows_generic`).  Windows of up to 64
 bits ride int64, so their unsigned order is taken with the sign bit
 flipped (:func:`_ult`).
+
+With profiling on (``utils/profiling.py``), a kernel call's host packing
+is the span ``sketch/pack``, its copies to the device ``sketch/copy``,
+the kernel ``sketch/kernel`` and the counts read back ``sketch/counts``.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import numpy as np
 import torch
 
 from ..params import MIN_LENGTH_CONTIG, SketchParams
+from ..utils import profiling
 
 U32_SENTINEL = 0xFFFFFFFF
 U32_MAX = (1 << 32) - 1
@@ -635,19 +640,21 @@ def _pack_call(pieces, slots: int, length_bucket: int, device):
     ``length_bucket``), the [slots + 1] starts table and the [slots + 1]
     window-end floors (each piece's start plus its floor); slots past the
     last piece hold the fed total."""
-    total = sum(len(b) for b, _ in pieces)
-    L = max(round_up(total, length_bucket), length_bucket)
-    raw = np.zeros(L, dtype=np.uint8)
-    starts = np.full(slots + 1, total, dtype=np.int32)
-    floors = np.full(slots + 1, total, dtype=np.int32)
-    off = 0
-    for i, (b, floor) in enumerate(pieces):
-        raw[off:off + len(b)] = np.frombuffer(b, dtype=np.uint8)
-        starts[i], floors[i] = off, off + floor
-        off += len(b)
-    return (encode_pack(torch.from_numpy(raw).to(device)),
-            torch.from_numpy(starts).to(device),
-            torch.from_numpy(floors).to(device))
+    with profiling.scope("sketch/pack"):
+        total = sum(len(b) for b, _ in pieces)
+        L = max(round_up(total, length_bucket), length_bucket)
+        raw = np.zeros(L, dtype=np.uint8)
+        starts = np.full(slots + 1, total, dtype=np.int32)
+        floors = np.full(slots + 1, total, dtype=np.int32)
+        off = 0
+        for i, (b, floor) in enumerate(pieces):
+            raw[off:off + len(b)] = np.frombuffer(b, dtype=np.uint8)
+            starts[i], floors[i] = off, off + floor
+            off += len(b)
+    with profiling.scope("sketch/copy"):
+        return (encode_pack(torch.from_numpy(raw).to(device)),
+                torch.from_numpy(starts).to(device),
+                torch.from_numpy(floors).to(device))
 
 
 def _sketch_genome_chunked(name: str, kept: List[bytes], params: SketchParams,
@@ -675,10 +682,12 @@ def _sketch_genome_chunked(name: str, kept: List[bytes], params: SketchParams,
             contig_budget_for(len(pieces)), length_bucket, device)
         sb_c = seed_budget_for(fed_total, params.c)
         mb_c = marker_budget_for(fed_total, params.marker_c)
-        out = sketch_kernel(
-            packed, starts, len(pieces), floors, k=params.k,
-            marker_k=params.marker_k, c=params.c, marker_c=params.marker_c,
-            seed_budget=sb_c, marker_budget=mb_c)
+        with profiling.scope("sketch/kernel", device):
+            out = sketch_kernel(
+                packed, starts, len(pieces), floors, k=params.k,
+                marker_k=params.marker_k, c=params.c,
+                marker_c=params.marker_c, seed_budget=sb_c,
+                marker_budget=mb_c)
         _warn_sketch_overflow(name, out["n_seeds_want"],
                               out["n_markers_want"], sb_c, mb_c)
         ns, nm = out["n_seeds"], out["n_markers"]
@@ -808,44 +817,52 @@ def _sketch_stack(group, params: SketchParams, seed_budget: int | None,
     if mc > MAX_CONTIGS_HARD:
         raise ValueError(f"max_contigs={mc} exceeds the engine's "
                          f"{MAX_CONTIGS_HARD} hard limit")
-    raw = np.zeros((B, L), dtype=np.uint8)
-    starts = np.zeros((B, mc + 1), dtype=np.int32)
-    clens = np.zeros((B, mc), dtype=np.int32)
-    for b, (gname, kept) in enumerate(group):
-        if len(kept) > mc:
-            raise ValueError(f"genome {gname!r} has {len(kept)} contigs, "
-                             f"more than the max_contigs={mc} budget")
-        off = 0
-        for i, contig in enumerate(kept):
-            raw[b, off:off + len(contig)] = np.frombuffer(contig, np.uint8)
-            starts[b, i] = off
-            clens[b, i] = len(contig)
-            off += len(contig)
-        starts[b, len(kept):] = off
-    packed = encode_pack(torch.from_numpy(raw).to(device))
-    starts = torch.from_numpy(starts).to(device)
-    clens = torch.from_numpy(clens).to(device)
+    with profiling.scope("sketch/pack"):
+        raw = np.zeros((B, L), dtype=np.uint8)
+        starts = np.zeros((B, mc + 1), dtype=np.int32)
+        clens = np.zeros((B, mc), dtype=np.int32)
+        for b, (gname, kept) in enumerate(group):
+            if len(kept) > mc:
+                raise ValueError(f"genome {gname!r} has {len(kept)} "
+                                 f"contigs, more than the max_contigs={mc} "
+                                 f"budget")
+            off = 0
+            for i, contig in enumerate(kept):
+                raw[b, off:off + len(contig)] = np.frombuffer(contig,
+                                                              np.uint8)
+                starts[b, i] = off
+                clens[b, i] = len(contig)
+                off += len(contig)
+            starts[b, len(kept):] = off
+    with profiling.scope("sketch/copy"):
+        packed = encode_pack(torch.from_numpy(raw).to(device))
+        starts = torch.from_numpy(starts).to(device)
+        clens = torch.from_numpy(clens).to(device)
     del raw
 
     rows = max(1, GIANT_SKETCH_BUFFER // L)
-    parts = [sketch_kernel_batch(
-        packed[lo:lo + rows], starts[lo:lo + rows],
-        [len(kept) for _, kept in group[lo:lo + rows]], k=params.k,
-        marker_k=params.marker_k, c=params.c, marker_c=params.marker_c,
-        seed_budget=sb, marker_budget=mb) for lo in range(0, B, rows)]
-    res = {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
-    counts = torch.stack([res.pop(key) for key in _COUNTS], 1).to(torch.int32)
-    want = counts[:, 2:].tolist()
-    for (gname, _), (ws, wm) in zip(group, want):
-        _warn_sketch_overflow(gname, ws, wm, sb, mb)
-    scalars = torch.tensor([[len(kept), min(t, U32_MAX)]
-                            for (_, kept), t in zip(group, totals)],
-                           dtype=torch.int64, device=device)
-    return [DeviceSketch(
-        **{key: v[b] for key, v in res.items()},
-        n_seeds=counts[b, 0], n_markers=counts[b, 1],
-        contig_lengths=clens[b], n_contigs=scalars[b, 0].to(torch.int32),
-        total_len=scalars[b, 1]) for b in range(B)]
+    with profiling.scope("sketch/kernel", device):
+        parts = [sketch_kernel_batch(
+            packed[lo:lo + rows], starts[lo:lo + rows],
+            [len(kept) for _, kept in group[lo:lo + rows]], k=params.k,
+            marker_k=params.marker_k, c=params.c, marker_c=params.marker_c,
+            seed_budget=sb, marker_budget=mb) for lo in range(0, B, rows)]
+        res = {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
+    with profiling.scope("sketch/counts"):
+        counts = torch.stack([res.pop(key) for key in _COUNTS],
+                             1).to(torch.int32)
+        want = counts[:, 2:].tolist()
+        for (gname, _), (ws, wm) in zip(group, want):
+            _warn_sketch_overflow(gname, ws, wm, sb, mb)
+        scalars = torch.tensor([[len(kept), min(t, U32_MAX)]
+                                for (_, kept), t in zip(group, totals)],
+                               dtype=torch.int64, device=device)
+        return [DeviceSketch(
+            **{key: v[b] for key, v in res.items()},
+            n_seeds=counts[b, 0], n_markers=counts[b, 1],
+            contig_lengths=clens[b],
+            n_contigs=scalars[b, 0].to(torch.int32),
+            total_len=scalars[b, 1]) for b in range(B)]
 
 
 def sketch_genomes_device(

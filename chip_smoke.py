@@ -128,18 +128,29 @@ Phases (any failure exits non-zero and prints no result line):
              device time (launches queued behind a sleep kernel, so the
              host's enqueue is off the clock), warm and with L2 flushed, the
              wrapper's host time per call and the plain version, and
-             computes the card's bound for the work.
+             computes the card's bound for the work.  The post-DP kernel
+             (``csrc/chain_post.cu``): the first input of each phase,
+             path and shape the packed paths fed it, through the kernel
+             and its plain version as recorded, with the kept-chain
+             table cut at 7 slots and with ``est_side="chunk"``: every
+             output bit-equal; timed on the family triangle's group and
+             cross-tile inputs beside its bound by bytes and the plain
+             version.
 
-The chain-DP kernel's launch count is reset just before the main-path
+Both kernels' launch counts are reset just before the main-path
 calls of each phase (the search's queries, the fallback's queries, the
 giant query, each of the three triangles, each timed run of the disk
 phase, the k = 21 queries, streamed queries and CLI, each part of the
 mesh phase in every rank) and read just after; each must launch it, the
 per-pair path for every fallback query, and the family triangle exactly
 3 times.  The kernels line counts every rank's launches, and the
-fragment-budget part's 3 (printed apart on the launches line).  Every
-chain call of every phase, in every rank, must return ``frag_overflow``
-and, outside that part, set it on no pair.
+fragment-budget part's 3 (printed apart on the launches line); the
+post-DP kernel's entry counts its launches in the same windows, every
+rank's.  The post-DP kernel must launch once per packed chain call on
+the card (``chain_block``, ``chain_triangle``) and never on
+``chain_pairs``, in every phase and every rank.  Every chain call of
+every phase, in every rank, must return ``frag_overflow`` and, outside
+that part, set it on no pair.
 
 The last three lines are the card line, one ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
@@ -148,6 +159,7 @@ object and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -236,8 +248,7 @@ def card_line() -> str:
 
 def phase_build(result):
     from pyskani_tpu_torch.ops import _build
-    names = sorted(f[:-3] for f in os.listdir(
-        os.path.join(ROOT, "pyskani_tpu_torch", "csrc")) if f.endswith(".cu"))
+    names = _build.sources()
     t0 = time.perf_counter()
     secs = _build.build(names)
     wall = time.perf_counter() - t0
@@ -293,7 +304,6 @@ def phase_goldens(result, torch, dev):
 def phase_search(result, torch, dev, args, rec):
     import pyskani_tpu_torch
     from pyskani_tpu_torch import database as dbmod
-    from pyskani_tpu_torch.ops import chain_dp as dp_mod
 
     rng = np.random.default_rng(args.seed)
     n_fam = 32
@@ -339,7 +349,7 @@ def phase_search(result, torch, dev, args, rec):
         return passes, est
 
     dbmod.screen_batch = screen_and_count
-    dp_mod.chain_dp.launches = 0
+    rec.start()
     q_times, all_hits = [], []
     try:
         for (qname, q), f in zip(queries, q_fams):
@@ -359,7 +369,7 @@ def phase_search(result, torch, dev, args, rec):
                     raise AssertionError(f"{qname}: implausible hit {h}")
     finally:
         dbmod.screen_batch = real_screen
-    launches = dp_mod.chain_dp.launches
+    launches = rec.stop()
     if launches == 0:
         raise AssertionError("the search never launched the chain-DP kernel")
     shapes = sorted({tuple(g[0].shape) for g in rec.grids_of("search")})
@@ -402,16 +412,19 @@ def phase_search(result, torch, dev, args, rec):
 
 
 class Recorder:
-    """Keeps every grid the pipelines feed the chain-DP kernel and counts
-    the kernel's launches per phase and path.
+    """Keeps every grid the pipelines feed the chain-DP kernel and the
+    first input of each shape they feed the post-DP kernel, and counts
+    both kernels' launches per phase and path.
 
     It wraps ``chain_dp`` as ``ops/chain.py`` calls it (a clone of each
     CUDA grid while ``keep`` is set; in a phase of ``distinct``, only the
-    first grid of each path and shape) and ``chain_block`` /
-    ``chain_pairs`` / ``chain_triangle`` as ``engine/batch.py``,
-    ``engine/stream.py`` and ``parallel/dist.py`` call them (the
-    wrapper's own launch count before and after each call, and each
-    output's ``frag_overflow``)."""
+    first grid of each path and shape), ``chain_post`` likewise (a clone
+    of the first CUDA input of each phase, path and shape while ``keep``
+    is set) and ``chain_block`` / ``chain_pairs`` / ``chain_triangle`` as
+    ``engine/batch.py``, ``engine/stream.py`` and ``parallel/dist.py``
+    call them (the wrappers' own launch counts before and after each
+    call, the packed calls on the card, and each output's
+    ``frag_overflow``)."""
 
     PATHS = ("chain_block", "chain_pairs", "chain_triangle")
 
@@ -420,24 +433,31 @@ class Recorder:
         from pyskani_tpu_torch.engine import stream as stream_mod
         from pyskani_tpu_torch.ops import chain as chain_mod
         from pyskani_tpu_torch.ops import chain_dp as dp_mod
+        from pyskani_tpu_torch.ops import chain_post as post_mod
         from pyskani_tpu_torch.parallel import dist as dist_mod
         self.grids = []          # (phase, path, (qpos, rpos, meta))
+        self.posts = []          # (phase, path, inputs, cfg, keywords)
         self.launches = {}       # (phase, path) -> launches
+        self.post_launches = {}  # (phase, path) -> post-DP launches
+        self.packed_calls = {}   # (phase, path) -> calls with pairs
         self.flags = []          # (phase, frag_overflow or None) per call
+        self.main = [0, 0]       # chain-DP, post-DP launches of the windows
         self.phase = None
         self.keep = True
         self.distinct = set()    # phases that keep one grid per shape
         self._seen = set()
+        self._post_seen = set()
         self._path = [None]
-        self._mods = (batch_mod, chain_mod, dp_mod)
+        self._mods = (batch_mod, chain_mod, dp_mod, post_mod)
         self._wrapped = [(batch_mod, n) for n in self.PATHS] + \
             [(stream_mod, "chain_block"), (dist_mod, "chain_block"),
              (dist_mod, "chain_pairs")]
         self._real = {}
 
     def __enter__(self):
-        _, chain_mod, dp_mod = self._mods
+        _, chain_mod, dp_mod, post_mod = self._mods
         real_dp = self._real["chain_dp"] = chain_mod.chain_dp
+        real_post = self._real["chain_post"] = chain_mod.chain_post
 
         def record_dp(q, r, m, cfg):
             key = (self.phase, self._path[-1], tuple(q.shape))
@@ -448,15 +468,25 @@ class Recorder:
                                    (q.clone(), r.clone(), m.clone())))
             return real_dp(q, r, m, cfg)
 
+        def record_post(*a, **kw):
+            key = (self.phase, self._path[-1], tuple(a[0].shape))
+            if self.keep and a[0].is_cuda and key not in self._post_seen:
+                self._post_seen.add(key)
+                self.posts.append((self.phase, self._path[-1],
+                                   [t.clone() for t in a[:7]], a[7], kw))
+            return real_post(*a, **kw)
+
         chain_mod.chain_dp = record_dp
+        chain_mod.chain_post = record_post
         for mod, name in self._wrapped:
             fn = self._real[(mod, name)] = getattr(mod, name)
-            setattr(mod, name, self._counted(name, fn, dp_mod))
+            setattr(mod, name, self._counted(name, fn, dp_mod, post_mod))
         return self
 
-    def _counted(self, name, fn, dp_mod):
+    def _counted(self, name, fn, dp_mod, post_mod):
         def call(*a, **kw):
             before = dp_mod.chain_dp.launches
+            before_post = post_mod.chain_post.launches
             self._path.append(name)
             try:
                 out = fn(*a, **kw)
@@ -465,9 +495,49 @@ class Recorder:
                 key = (self.phase, name)
                 self.launches[key] = self.launches.get(key, 0) + \
                     dp_mod.chain_dp.launches - before
+                self.post_launches[key] = self.post_launches.get(key, 0) + \
+                    post_mod.chain_post.launches - before_post
+            nc = out.get("n_chains")
+            packed = nc is not None and nc.is_cuda and nc.numel() > 0
+            self.packed_calls[key] = self.packed_calls.get(key, 0) + packed
             self.flags.append((self.phase, out.get("frag_overflow")))
             return out
         return call
+
+    def start(self):
+        """Opens a counted window of the main path: zeroes both kernels'
+        launch counters."""
+        dp_mod, post_mod = self._mods[2:]
+        dp_mod.chain_dp.launches = post_mod.chain_post.launches = 0
+
+    def stop(self, main=True) -> int:
+        """Closes a counted window: adds both kernels' launches in it to
+        ``main`` (if it is a main-path window) and returns the chain-DP
+        kernel's."""
+        dp_mod, post_mod = self._mods[2:]
+        if main:
+            self.main[0] += dp_mod.chain_dp.launches
+            self.main[1] += post_mod.chain_post.launches
+        return dp_mod.chain_dp.launches
+
+    def add_ranks(self, ranks):
+        """Adds the spawned ranks' main-path launches to ``main``."""
+        self.main[0] += sum(r["launches"] for r in ranks)
+        self.main[1] += sum(r["post_launches"] for r in ranks)
+
+    def post_report(self) -> dict:
+        """{phase/path: [packed calls with pairs on the card, post-DP
+        launches]} over every recorded call; raises unless the two are
+        equal everywhere (so ``chain_pairs`` launches none)."""
+        keys = sorted(set(self.packed_calls) | set(self.post_launches),
+                      key=str)
+        report = {f"{ph}/{pa}": [self.packed_calls.get((ph, pa), 0),
+                                 self.post_launches.get((ph, pa), 0)]
+                  for ph, pa in keys}
+        if any(v[0] != v[1] for v in report.values()):
+            raise AssertionError(f"post-DP kernel per phase/path [packed "
+                                 f"calls, launches]: {report}")
+        return report
 
     def flag_report(self) -> dict:
         """{phase: [chain calls, calls without ``frag_overflow``, pairs
@@ -483,8 +553,9 @@ class Recorder:
         return rep
 
     def __exit__(self, *exc):
-        _, chain_mod, _ = self._mods
+        chain_mod = self._mods[1]
         chain_mod.chain_dp = self._real["chain_dp"]
+        chain_mod.chain_post = self._real["chain_post"]
         for mod, name in self._wrapped:
             setattr(mod, name, self._real[(mod, name)])
         return False
@@ -518,7 +589,6 @@ def phase_fallback(result, torch, dev, args, rec):
     scale; returns (database, queries, hits) for the giant phase."""
     import pyskani_tpu_torch
     from pyskani_tpu_torch import database as dbmod
-    from pyskani_tpu_torch.ops import chain_dp as dp_mod
 
     F = FALLBACK
     rng = np.random.default_rng(args.seed + 1)
@@ -570,7 +640,7 @@ def phase_fallback(result, torch, dev, args, rec):
         f"{sorted({r[3] for r in routes})} bp; complete members per-pair")
 
     rec.phase = "fallback"
-    dp_mod.chain_dp.launches = 0
+    rec.start()
     q_times, all_hits, pairs_per_query = [], [], []
     for (qname, q), fam in zip(queries, fams):
         before = rec.launches_of("fallback", "chain_pairs")
@@ -589,7 +659,7 @@ def phase_fallback(result, torch, dev, args, rec):
             if not (0.9 < h.identity <= 1.0 and 0.0 < h.query_fraction <= 1
                     and 0.0 < h.reference_fraction <= 1.0):
                 raise AssertionError(f"{qname}: implausible hit {h}")
-    launches = dp_mod.chain_dp.launches
+    launches = rec.stop()
     rec.phase = None
     if min(pairs_per_query) < 1:
         raise AssertionError(f"chain_pairs launched the DP "
@@ -712,7 +782,6 @@ def _timed(torch, fn):
 
 def phase_giant(result, torch, dev, args, rec, db, queries, fb_hits):
     from pyskani_tpu_torch import database as dbmod
-    from pyskani_tpu_torch.ops import chain_dp as dp_mod
     from pyskani_tpu_torch.ops.sketch import (FIELDS, GIANT_SKETCH_BUFFER,
                                               sketch_genome_device)
     from pyskani_tpu_torch.params import SketchParams
@@ -777,14 +846,14 @@ def phase_giant(result, torch, dev, args, rec, db, queries, fb_hits):
     real_sketch = dbmod.sketch_genome_device
     dbmod.sketch_genome_device = lambda *a, **k: giant
     rec.phase = "giant"
-    dp_mod.chain_dp.launches = 0
+    rec.start()
     try:
         # timed with no grid kept, so neither the wall time nor the peak
         # holds the harness's copies; a second, untimed query keeps them
         rec.keep = False
         hits, wall_s, peak_gib = _timed(torch, lambda: db.query(
             qname + "_giant", b"A" * 600, learned_ani=False))
-        launches = dp_mod.chain_dp.launches
+        launches = rec.stop()
         per_path = {p: rec.launches_of("giant", p) for p in Recorder.PATHS}
         rec.keep = True
         kept = db.query(qname + "_giant", b"A" * 600, learned_ani=False)
@@ -793,10 +862,10 @@ def phase_giant(result, torch, dev, args, rec, db, queries, fb_hits):
         # the query's, so none is kept
         rec.keep = False
         rec.phase = "giant_est_ci"
-        dp_mod.chain_dp.launches = 0
+        rec.start()
         ci_hits, ci_wall_s, ci_peak_gib = _timed(torch, lambda: db.query(
             qname + "_giant", b"A" * 600, learned_ani=False, est_ci=True))
-        ci_launches = dp_mod.chain_dp.launches
+        ci_launches = rec.stop()
     finally:
         dbmod.sketch_genome_device = real_sketch
         rec.phase = None
@@ -897,7 +966,6 @@ def _frag_budget_part(torch, dev, rec, genomes, sketches, cfg, budgets):
 
     import pyskani_tpu_torch
     from pyskani_tpu_torch.engine import batch as eb
-    from pyskani_tpu_torch.ops import chain_dp as dp_mod
 
     F = FRAG_BUDGET
     small = dataclasses.replace(budgets, max_fragments=F["max_fragments"])
@@ -916,7 +984,7 @@ def _frag_budget_part(torch, dev, rec, genomes, sketches, cfg, budgets):
                 _cpu(eb.chain_block(r, q, cfg=cfg, budgets=small)))
 
     rec.phase = "frag_budget"
-    dp_mod.chain_dp.launches = 0
+    rec.start()
     tri, blk = calls(stack, refs, query)
     tri_cpu, blk_cpu = calls(*(x.map(lambda t: t.cpu())
                                for x in (stack, refs, query)))
@@ -925,7 +993,7 @@ def _frag_budget_part(torch, dev, rec, genomes, sketches, cfg, budgets):
         eb.triangle(sketches[:F["genomes"]], cfg, budgets=small)
     except RuntimeError as e:
         raised.append(str(e))
-    launches = dp_mod.chain_dp.launches
+    launches = rec.stop()
     rec.phase = None
     for out in (tri, blk):
         try:
@@ -976,7 +1044,6 @@ def phase_triangle(result, torch, dev, args, rec, db):
     import pyskani_tpu_torch
     from pyskani_tpu_torch import cli
     from pyskani_tpu_torch.engine import batch as eb
-    from pyskani_tpu_torch.ops import chain_dp as dp_mod
     from pyskani_tpu_torch.ops.chain import ChainConfig
     from pyskani_tpu_torch.ops.sketch import FIELDS
 
@@ -1014,11 +1081,11 @@ def phase_triangle(result, torch, dev, args, rec, db):
     rec.phase = "triangle"
     first, first_s, _ = _timed(torch, lambda: eb.triangle(sketches, cfg))
     rec.keep = False
-    dp_mod.chain_dp.launches = 0
+    rec.start()
     base = {p: rec.launches_of("triangle", p) for p in Recorder.PATHS}
     (ri, qi, out), wall_s, peak_gib = _timed(
         torch, lambda: eb.triangle(sketches, cfg))
-    fam_launches = dp_mod.chain_dp.launches
+    fam_launches = rec.stop()
     per_path = {p: rec.launches_of("triangle", p) - base[p]
                 for p in Recorder.PATHS}
     rec.keep = True
@@ -1075,14 +1142,14 @@ def phase_triangle(result, torch, dev, args, rec, db):
     rec.phase = "triangle_mixed"
     _, _, mfirst = eb.triangle(mixed, cfg)
     rec.keep = False
-    dp_mod.chain_dp.launches = 0
+    rec.start()
     base = {p: rec.launches_of("triangle_mixed", p) for p in Recorder.PATHS}
     try:
         (mri, mqi, mout), mixed_s, mixed_gib = _timed(
             torch, lambda: eb.triangle(mixed, cfg))
     finally:
         rec.keep = True
-    mixed_launches = dp_mod.chain_dp.launches
+    mixed_launches = rec.stop()
     mixed_path = {p: rec.launches_of("triangle_mixed", p) - base[p]
                   for p in Recorder.PATHS}
     rec.phase = "triangle_checks"
@@ -1130,9 +1197,9 @@ def phase_triangle(result, torch, dev, args, rec, db):
                 f.write(b">" + n.encode() + b"\n" + g + b"\n")
         tsv = os.path.join(tmp, "out.tsv")
         rec.phase = "triangle_cli"
-        dp_mod.chain_dp.launches = 0
+        rec.start()
         rc = cli.main(["triangle", *paths, "--device", "cuda", "-o", tsv])
-        cli_launches = dp_mod.chain_dp.launches
+        cli_launches = rec.stop()
         rec.phase = None
         with open(tsv) as f:
             rows = f.read().splitlines()
@@ -1362,13 +1429,17 @@ def phase_disk(result, torch, dev, rec, db, queries, fb_db, fb_queries,
     import pyskani_tpu_torch
     from pyskani_tpu_torch import cli
     from pyskani_tpu_torch.engine import batch as eb
-    from pyskani_tpu_torch.ops import chain_dp as dp_mod
     from pyskani_tpu_torch.ops import prng
     from pyskani_tpu_torch.ops.chain import ChainConfig
 
     Database = pyskani_tpu_torch.Database
     launches, chunks, rep = {}, {}, {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_disk_")
+
+    # the memory store's queries are the search phase's again
+    main_path = ("open_consolidated", "load_consolidated", "open_separated",
+                 "load_separated", "open_copies", "est_ci_memory",
+                 "est_ci_fallback", "est_ci_triangle", "cli")
 
     def run_queries(store, label, keep=False, n=len(queries), **kw):
         """The first ``n`` queries on ``store``: one untimed query (its DP
@@ -1384,11 +1455,11 @@ def phase_disk(result, torch, dev, rec, db, queries, fb_db, fb_queries,
             store.query(*queries[0], learned_ani=False, **kw)
             rec.keep = False
             before = rec.launches_of(phase, "chain_block")
-            dp_mod.chain_dp.launches = 0
+            rec.start()
             hits, wall, peak = _timed(torch, lambda: [
                 store.query(name, q, learned_ani=False, **kw)
                 for name, q in qs])
-            launches[label] = dp_mod.chain_dp.launches
+            launches[label] = rec.stop(main=label in main_path)
             chunks[label] = rec.launches_of(phase, "chain_block") - before
         finally:
             rec.keep = True
@@ -1502,10 +1573,10 @@ def phase_disk(result, torch, dev, rec, db, queries, fb_db, fb_queries,
         rec.phase = "disk_est_ci_fallback"
         rec.keep = False
         try:
-            dp_mod.chain_dp.launches = 0
+            rec.start()
             fb_ci, _, fb_ci_gib = _timed(torch, lambda: fb_db.query(
                 *fq, learned_ani=False, est_ci=True))
-            launches["est_ci_fallback"] = dp_mod.chain_dp.launches
+            launches["est_ci_fallback"] = rec.stop()
         finally:
             rec.keep = True
             rec.phase = None
@@ -1526,10 +1597,10 @@ def phase_disk(result, torch, dev, rec, db, queries, fb_db, fb_queries,
         rec.phase = "disk_est_ci_triangle"
         rec.keep = False
         try:
-            dp_mod.chain_dp.launches = 0
+            rec.start()
             (_, _, tri), _, tri_gib = _timed(
                 torch, lambda: eb.triangle(sketches, cfg_ci))
-            launches["est_ci_triangle"] = dp_mod.chain_dp.launches
+            launches["est_ci_triangle"] = rec.stop()
         finally:
             rec.keep = True
             rec.phase = None
@@ -1634,7 +1705,7 @@ def phase_disk(result, torch, dev, rec, db, queries, fb_db, fb_queries,
         store = os.path.join(tmp, "cli_db")
         rec.phase = "disk_cli"
         try:
-            dp_mod.chain_dp.launches = 0
+            rec.start()
             if cli.main(["sketch", *paths, "-o", store, "--device",
                          "cuda"]) != 0:
                 raise AssertionError("CLI sketch failed")
@@ -1647,7 +1718,7 @@ def phase_disk(result, torch, dev, rec, db, queries, fb_db, fb_queries,
                     raise AssertionError("CLI search failed")
                 with open(tsv) as f:
                     rows[preload] = f.read().splitlines()
-            launches["cli"] = dp_mod.chain_dp.launches
+            launches["cli"] = rec.stop()
         finally:
             rec.phase = None
         # the library's own rows: same grids as the CLI's, none kept
@@ -1679,9 +1750,6 @@ def phase_disk(result, torch, dev, rec, db, queries, fb_db, fb_queries,
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    main_path = ("open_consolidated", "load_consolidated", "open_separated",
-                 "load_separated", "open_copies", "est_ci_memory",
-                 "est_ci_fallback", "est_ci_triangle", "cli")
     for label in main_path:
         if launches[label] < 1:
             raise AssertionError(f"disk {label}: no chain-DP launch")
@@ -1736,21 +1804,23 @@ def mesh_rank(store, queries, fam, shapes, ring):
     store at each mesh shape of the world, then ``sharded_triangle`` and
     (with ``ring``) ``ring_triangle`` of the family's sketches.  The
     first DP grid of each path and shape is kept and, after the run, held
-    bit-equal to ``chain_dp_plain``.  Returns the results, the devices
-    the rank's sketches lay on, its chain-DP launches and the grids it
-    checked."""
+    bit-equal to ``chain_dp_plain``, and the post-DP kernel must have
+    run once per packed call on the card.  Returns the results, the
+    devices the rank's sketches lay on, both kernels' launches and the
+    grids it checked."""
     import torch
 
-    from pyskani_tpu_torch.ops import chain_dp as dp_mod
     from pyskani_tpu_torch.ops.chain import ChainConfig
 
     out = dict(hits={}, chunks={}, devices=set())
     with Recorder() as rec:
         rec.phase = "mesh"
         rec.distinct.add("mesh")
-        dp_mod.chain_dp.launches = 0
+        rec.start()
         _mesh_rank_run(out, store, queries, fam, shapes, ring)
-        out["launches"] = dp_mod.chain_dp.launches
+        out["launches"] = rec.stop()
+    out["post_launches"] = rec.main[1]
+    out["post_report"] = rec.post_report()
     out["grids"] = _hold_plain(torch, rec.grids, ChainConfig())
     out["flags"] = rec.flag_report()
     return out
@@ -1862,7 +1932,6 @@ def phase_mesh(result, torch, dev, card, rec, db, queries, family):
 
     from pyskani_tpu_torch import Database, convert
     from pyskani_tpu_torch.engine import batch as eb
-    from pyskani_tpu_torch.ops import chain_dp as dp_mod
     from pyskani_tpu_torch.ops.chain import ChainConfig, chain_pairs
     from pyskani_tpu_torch.parallel import dist as pdist
     from pyskani_tpu_torch.parallel.mesh import make_mesh
@@ -1890,7 +1959,7 @@ def phase_mesh(result, torch, dev, card, rec, db, queries, family):
                 raise AssertionError(f"(a) is not an NCCL mesh: {mesh}")
             rec.phase = "mesh"
             rec.distinct.add("mesh")
-            dp_mod.chain_dp.launches = 0
+            rec.start()
             t0 = time.perf_counter()
             s_mem = ShardedDatabaseSearch(db, mesh, learned_ani=False)
             mem = _hit_rows(s_mem.query_many(named))
@@ -1908,7 +1977,7 @@ def phase_mesh(result, torch, dev, card, rec, db, queries, family):
                                              budgets=budgets)
             torch.cuda.synchronize()
             wall_a = time.perf_counter() - t0
-            launches_a = dp_mod.chain_dp.launches
+            launches_a = rec.stop()
         finally:
             rec.phase = None
             tdist.destroy_process_group()
@@ -1972,8 +2041,10 @@ def phase_mesh(result, torch, dev, card, rec, db, queries, family):
         wall_b = time.perf_counter() - t0
         diffs = _check_ranks(ranks, opened, want_tri, "(b)")
         launches_b = sum(r["launches"] for r in ranks)
+        rec.add_ranks(ranks)
         rep["b"] = dict(wall_s=wall_b, rank_wall_s=[r["wall_s"] for r in ranks],
                         launches=[r["launches"] for r in ranks],
+                        post_launches=[r["post_launches"] for r in ranks],
                         chunks={f"{k[0]}x{k[1]}": v
                                 for k, v in ranks[0]["chunks"].items()},
                         max_diff=diffs, grids=[r["grids"] for r in ranks])
@@ -1983,8 +2054,8 @@ def phase_mesh(result, torch, dev, card, rec, db, queries, family):
             f"rank's DP grids of each shape bit-equal to chain_dp_plain "
             f"(rank 0: {ranks[0]['grids']}); wall "
             f"{wall_b:.2f} s (ranks {[round(r['wall_s'], 2) for r in ranks]} "
-            f"s after start-up), chain-DP launches {rep['b']['launches']} "
-            f"({card})")
+            f"s after start-up), chain-DP launches {rep['b']['launches']}, "
+            f"post-DP {rep['b']['post_launches']} ({card})")
 
         # ---- (c) one card per rank over NCCL ----
         n = torch.cuda.device_count()
@@ -2000,6 +2071,7 @@ def phase_mesh(result, torch, dev, card, rec, db, queries, family):
             wall_c = time.perf_counter() - t0
             diffs = _check_ranks(ranks, opened, want_tri, "(c)")
             launches_c = sum(r["launches"] for r in ranks)
+            rec.add_ranks(ranks)
             rep["c"] = dict(world=world, wall_s=wall_c, max_diff=diffs,
                             launches=[r["launches"] for r in ranks],
                             grids=[r["grids"] for r in ranks])
@@ -2055,7 +2127,6 @@ def phase_generic_k(result, torch, dev, args, rec):
     from pyskani_tpu_torch import cli
     from pyskani_tpu_torch import database as dbmod
     from pyskani_tpu_torch.io.fasta import parse
-    from pyskani_tpu_torch.ops import chain_dp as dp_mod
     from pyskani_tpu_torch.ops.sketch import (marker_budget_for,
                                               seed_budget_for,
                                               sketch_kernel_batch)
@@ -2136,7 +2207,7 @@ def phase_generic_k(result, torch, dev, args, rec):
 
     dbmod.screen_batch = screen_and_count
     rec.phase = "generic_k"
-    dp_mod.chain_dp.launches = 0
+    rec.start()
     q_times, all_hits = [], []
     try:
         for f, (qname, q) in enumerate(queries):
@@ -2154,7 +2225,7 @@ def phase_generic_k(result, torch, dev, args, rec):
                         0.0 < h.query_fraction <= 1.0 and
                         0.0 < h.reference_fraction <= 1.0):
                     raise AssertionError(f"k=21 {qname}: implausible {h}")
-        launches["search"] = dp_mod.chain_dp.launches
+        launches["search"] = rec.stop()
         rec.phase = None
 
         # the first query against two of its family on the CPU port
@@ -2221,10 +2292,10 @@ def phase_generic_k(result, torch, dev, args, rec):
             raise AssertionError(f"opened store has k={opened._params.k}")
         rec.phase, rec.keep = "generic_k_open", False
         try:
-            dp_mod.chain_dp.launches = 0
+            rec.start()
             hits = [opened.query(n, q, learned_ani=False)
                     for n, q in queries[:2]]
-            launches["open"] = dp_mod.chain_dp.launches
+            launches["open"] = rec.stop()
         finally:
             rec.phase, rec.keep = None, True
         d_open = max(_same_hits(h, m, "k=21 open")
@@ -2241,12 +2312,12 @@ def phase_generic_k(result, torch, dev, args, rec):
         tsv = os.path.join(tmp, "dist.tsv")
         rec.phase = "generic_k_cli"
         try:
-            dp_mod.chain_dp.launches = 0
+            rec.start()
             if cli.main(["dist", "-q", qpath, "-r", *rpaths, "-k", "21",
                          "--learned-ani", "no", "--device", "cuda", "-o",
                          tsv]) != 0:
                 raise AssertionError("CLI dist -k 21 failed")
-            launches["cli"] = dp_mod.chain_dp.launches
+            launches["cli"] = rec.stop()
         finally:
             rec.phase = None
         with open(tsv) as f:
@@ -2459,6 +2530,29 @@ def _row_profile(grids):
                 max=int(v.max()))
 
 
+def _time_wrapper(torch, dev, call, plain_call, n_warm, n_cold, n_plain):
+    """Device ms of ``call`` (warm: ``n_warm`` launches back to back;
+    cold: L2 flushed before each of ``n_cold``), the wrapper's host ms
+    per call, and ``plain_call``'s ms (``n_plain`` synchronised calls)."""
+    flush_buf = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    for _ in range(5):
+        call()
+    ms, host_ms, warm_times = _device_ms(torch, call, n_warm)
+    cold_ms, _, cold_times = _device_ms(torch, call, n_cold,
+                                        flush=flush_buf.zero_)
+    del flush_buf
+    plain = []
+    for _ in range(n_plain):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_call()
+        torch.cuda.synchronize()
+        plain.append((time.perf_counter() - t0) * 1e3)
+    return dict(warm_ms=ms, warm_batch_ms=warm_times, cold_ms=cold_ms,
+                cold_times_ms=cold_times, host_ms_per_call=host_ms,
+                plain_ms=plain, plain_median_ms=float(np.median(plain)))
+
+
 def _time_kernel(torch, dev, grid, cfg, label, n_plain=3):
     """Device ms of the kernel on ``grid`` (warm: 200 launches back to
     back; cold: L2 flushed before each of 30), the wrapper's host ms per
@@ -2468,24 +2562,8 @@ def _time_kernel(torch, dev, grid, cfg, label, n_plain=3):
 
     q, r, m = grid
     R, PF = q.shape
-
-    def call():
-        chain_dp(q, r, m, cfg)
-
-    flush_buf = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
-    for _ in range(5):
-        call()
-    ms, host_ms, warm_times = _device_ms(torch, call, 200)
-    cold_ms, _, cold_times = _device_ms(torch, call, 30,
-                                        flush=flush_buf.zero_)
-    del flush_buf
-    plain = []
-    for _ in range(n_plain):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        chain_dp_plain(q, r, m, cfg)
-        torch.cuda.synchronize()
-        plain.append((time.perf_counter() - t0) * 1e3)
+    t = _time_wrapper(torch, dev, lambda: chain_dp(q, r, m, cfg),
+                      lambda: chain_dp_plain(q, r, m, cfg), 200, 30, n_plain)
     bytes_ms = R * PF * 20 / PEAK_BYTES * 1e3
     tests = _dp_tests(m, cfg.chain_band)
     ops_ms = tests * DP_OPS_PER_TEST / PEAK_OPS * 1e3
@@ -2495,22 +2573,116 @@ def _time_kernel(torch, dev, grid, cfg, label, n_plain=3):
     log(f"[kernels] {label} grid [R, PF] = [{R}, {PF}] (valid anchors per "
         f"row: mean {prof['mean_all']:.1f}, {prof['mean_nonempty']:.1f} "
         f"over the {1 - prof['empty_share']:.3f} of rows with anchors, max "
-        f"{prof['max']}): device {ms:.5f} ms warm (200 back-to-back "
-        f"launches), {cold_ms:.5f} ms with L2 flushed (median of 30); "
-        f"wrapper host time {host_ms:.4f} ms per call; plain "
-        f"{float(np.median(plain)):.2f} ms")
+        f"{prof['max']}): device {t['warm_ms']:.5f} ms warm (200 "
+        f"back-to-back launches), {t['cold_ms']:.5f} ms with L2 flushed "
+        f"(median of 30); wrapper host time {t['host_ms_per_call']:.4f} ms "
+        f"per call; plain {t['plain_median_ms']:.2f} ms")
     log(f"[kernels] {label} bound {bound_ms:.5f} ms by {bound_by} (bytes "
         f"{bytes_ms:.5f} ms, {tests:.0f} predecessor tests -> "
-        f"{ops_ms:.5f} ms): warm time {ms / bound_ms:.2f}x the bound")
-    return dict(shape=[R, PF], rows=prof, warm_ms=ms,
-                warm_batch_ms=warm_times, cold_ms=cold_ms,
-                cold_times_ms=cold_times, host_ms_per_call=host_ms,
-                plain_ms=plain, plain_median_ms=float(np.median(plain)),
-                bytes_ms=bytes_ms, ops_ms=ops_ms, predecessor_tests=tests,
-                bound_ms=bound_ms, bound_by=bound_by)
+        f"{ops_ms:.5f} ms): warm time {t['warm_ms'] / bound_ms:.2f}x the "
+        f"bound")
+    return dict(shape=[R, PF], rows=prof, **t, bytes_ms=bytes_ms,
+                ops_ms=ops_ms, predecessor_tests=tests, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
-def phase_kernels(result, torch, dev, rec, launches):
+def _post_bytes(inputs, kw):
+    """(the post-DP kernel's least bytes, valid grid cells): 24 B per
+    valid cell (w1, w2 int64, score f32, root int32), 24 per row (numer,
+    span_lo, span_hi), 49 per [P, CE] slot (six int64 planes and
+    end_valid), 8 per [P, NF] numerator, 5 per pair (n_chains,
+    ref_over)."""
+    w1g, row_bounds = inputs[0], inputs[4]
+    R, PF = w1g.shape
+    NF, CE = kw["NF"], kw["CE"]
+    P = R // NF
+    valid = int(row_bounds.diff().clamp(0, PF).sum())
+    return valid * 24 + R * 24 + P * CE * 49 + P * NF * 8 + P * 5, valid
+
+
+def _check_post(torch, rec):
+    """The post-DP kernel bit-equal to its plain version on every
+    recorded input, as recorded, with the kept-chain table cut at 7
+    slots, and with ``est_side="chunk"``.  Returns the inputs checked per
+    phase/path and the largest |kernel - plain| over every output."""
+    from pyskani_tpu_torch.ops.chain_post import (KEYS, chain_post,
+                                                  chain_post_plain)
+    counts = {}
+    worst = 0.0
+    for phase, path, ins, cfg, kw in rec.posts:
+        label = f"{phase}/{path}"
+        for c, k in ((cfg, kw), (cfg, dict(kw, CE=7)),
+                     (dataclasses.replace(cfg, est_side="chunk"), kw)):
+            got = chain_post(*ins, c, **k)
+            want = chain_post_plain(*ins[:4], *ins[5:], c, **k)
+            for key in KEYS:
+                if got[key].numel():
+                    worst = max(worst, float((got[key].double() -
+                                              want[key].double()).abs()
+                                             .max()))
+                if not torch.equal(got[key], want[key]):
+                    raise AssertionError(
+                        f"chain_post kernel != plain in {key} on a {label} "
+                        f"grid {tuple(ins[0].shape)} (CE {k['CE']}, "
+                        f"est_side {c.est_side}; max |diff| so far {worst})")
+        counts[label] = counts.get(label, 0) + 1
+    if not counts.get("triangle/chain_triangle") or \
+            not counts.get("triangle/chain_block"):
+        raise AssertionError(f"no triangle post-DP input was recorded: "
+                             f"{counts}")
+    log(f"[kernels] chain_post bit-equal to its plain version on "
+        f"{len(rec.posts)} recorded inputs x 3 variants (full table, CE 7, "
+        f"est_side chunk; max |diff| {worst}): {counts}")
+    return counts, worst
+
+
+def _time_post(torch, dev, post, label, n_plain=3):
+    """Device ms of the post-DP kernel on a recorded input (warm: 50
+    launches back to back; cold: L2 flushed before each of 20), the
+    wrapper's host ms per call, the plain version's ms (median of
+    ``n_plain``) and the card's bound by bytes."""
+    from pyskani_tpu_torch.ops.chain_post import chain_post, chain_post_plain
+
+    _, _, ins, cfg, kw = post
+    R, PF = ins[0].shape
+    t = _time_wrapper(torch, dev, lambda: chain_post(*ins, cfg, **kw),
+                      lambda: chain_post_plain(*ins[:4], *ins[5:], cfg,
+                                               **kw), 50, 20, n_plain)
+    nbytes, valid = _post_bytes(ins, kw)
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    log(f"[kernels] chain_post {label} grid [R, PF] = [{R}, {PF}], NF "
+        f"{kw['NF']}, CE {kw['CE']} ({valid} valid cells): device "
+        f"{t['warm_ms']:.5f} ms warm (50 back-to-back launches), "
+        f"{t['cold_ms']:.5f} ms with L2 flushed (median of 20); wrapper "
+        f"host time {t['host_ms_per_call']:.4f} ms per call; plain "
+        f"{t['plain_median_ms']:.2f} ms; bound {bound_ms:.5f} ms by bytes "
+        f"({nbytes / 1e6:.1f} MB): warm time {t['warm_ms'] / bound_ms:.2f}x "
+        f"the bound")
+    return dict(shape=[R, PF], NF=kw["NF"], CE=kw["CE"], valid_cells=valid,
+                **t, bytes=nbytes, bound_ms=bound_ms, bound_by="bytes")
+
+
+def check_post_launches(result, rec, launches) -> int:
+    """The post-DP kernel ran once per packed chain call with pairs on
+    the card (``chain_block``, ``chain_triangle``; the CPU port's calls
+    take the plain version) and never on ``chain_pairs``, in every phase
+    of this process; the counted windows are those that make up the
+    chain-DP kernel's ``launches``.  Returns the post-DP kernel's
+    launches in those windows, every rank's."""
+    report = rec.post_report()
+    if rec.main[0] != launches or not rec.main[1]:
+        raise AssertionError(f"counted windows: chain-DP {rec.main[0]} "
+                             f"launches (the phases count {launches}), "
+                             f"post-DP {rec.main[1]}")
+    log(f"[launches] post-DP kernel on the main paths, every rank: "
+        f"{rec.main[1]}; one per packed chain call on the card (none on "
+        f"chain_pairs) in every phase of this process [packed calls, "
+        f"launches]: {report}")
+    result["post_launch_report"] = report
+    return rec.main[1]
+
+
+def phase_kernels(result, torch, dev, rec, launches, post_launches):
     from pyskani_tpu_torch.ops.chain import ChainConfig
     from pyskani_tpu_torch.ops.chain_dp import chain_dp, chain_dp_plain
 
@@ -2588,14 +2760,33 @@ def phase_kernels(result, torch, dev, rec, launches):
                  plain_ms=search["plain_median_ms"],
                  bound_ms=search["bound_ms"], bound_by=search["bound_by"],
                  library_ms=None)
-    result["kernels"] = [entry]
+    post_counts, post_worst = _check_post(torch, rec)
+    tri = {pa: next(p for p in rec.posts if p[:2] == ("triangle", pa))
+           for pa in ("chain_triangle", "chain_block")}
+    post_group = _time_post(torch, dev, tri["chain_triangle"],
+                            "triangle group")
+    post_cross = _time_post(torch, dev, tri["chain_block"],
+                            "triangle cross tile", n_plain=1)
+    post_regs = _registers("chain_post")
+    log(f"[kernels] chain_post: {post_regs} registers")
+    post_entry = dict(name="chain_post", route="cuda",
+                      source="pyskani_tpu_torch/csrc/chain_post.cu",
+                      replaces=None, launches=post_launches,
+                      max_abs_err=post_worst,
+                      ms=post_group["warm_ms"],
+                      plain_ms=post_group["plain_median_ms"],
+                      bound_ms=post_group["bound_ms"], bound_by="bytes",
+                      library_ms=None)
+    result["kernels"] = [entry, post_entry]
     result["kernel_detail"] = dict(
         search=search, fallback=fallback, giant=giant,
         triangle_group=tri_group, triangle_cross=tri_cross, k21_search=k21,
         pair_row_profiles=profiles,
         registers=regs, grids_checked=len(cases), recorded=counts,
-        plain_s=plain_s)
-    return entry
+        plain_s=plain_s, post_recorded=post_counts,
+        post_triangle_group=post_group, post_triangle_cross=post_cross,
+        post_registers=post_regs)
+    return result["kernels"]
 
 
 def check_flags(result, report: dict) -> None:
@@ -2676,7 +2867,8 @@ def main() -> int:
         f"triangle {tri_launches}, disk {disk_launches}, generic_k "
         f"{gk_launches}, mesh {mesh_launches}: {main_launches}; with the "
         f"fragment-budget part's {frag_launches}: {launches}")
-    entry = phase_kernels(result, torch, dev, rec, launches)
+    post_launches = check_post_launches(result, rec, launches)
+    entries = phase_kernels(result, torch, dev, rec, launches, post_launches)
     result["total_s"] = time.perf_counter() - t_start
     log(f"[done] {result['total_s']:.1f} s")
     if args.out:
@@ -2685,7 +2877,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
     print(card)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -88,11 +88,17 @@ def build(names: Sequence[str]) -> Dict[str, float]:
     return secs
 
 
+def sources() -> list:
+    """The names of every ``csrc/<name>.cu``."""
+    return sorted(f[:-3] for f in os.listdir(_CSRC) if f.endswith(".cu"))
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built if needed: the
+    first load builds every missing source, all at once."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
+        build(sources())
         lib = ctypes.CDLL(_target(name)[1])
         _loaded[name] = lib
     return lib

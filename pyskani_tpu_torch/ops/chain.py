@@ -15,12 +15,12 @@ hold).  For G_r references x G_q queries, ``chain_block``:
    position), rows = (pair, query fragment), and gathered into two packed
    [P*NF, PF] grid words.
 3. The chain DP (``ops/chain_dp.py``: the CUDA kernel on the card).
-4. ``_post_dp_block``: per-chain statistics by scatter-reduce into
-   [rows, PF] bins keyed by chain root (the GPU-natural form of the JAX
-   per-row sort + segmented scans, with the same values), per-fragment
-   numerators and span denominators on both genomes' fragment grids, the
-   pooled mean / trimmed mean / median, and aligned fractions from
-   interval unions of the kept chains.
+4. ``_post_dp_block``: per-chain statistics in [rows, PF] bins keyed by
+   chain root (``ops/chain_post.py``: a CUDA kernel on the card, in place
+   of the JAX per-row sort + segmented scans, with the same values),
+   per-fragment numerators and span denominators on both genomes'
+   fragment grids, the pooled mean / trimmed mean / median, and aligned
+   fractions from interval unions of the kept chains.
 
 Integer outputs equal the JAX package's bit for bit; f32 estimators and
 aligned fractions agree within 1e-6 (summation order and ``pow`` may
@@ -46,6 +46,8 @@ import torch
 from ..utils import profiling
 from . import prng
 from .chain_dp import chain_dp
+from .chain_post import KEYS as POST_KEYS
+from .chain_post import chain_post
 from .sketch import I32_SENTINEL, U32_SENTINEL, DeviceSketch
 
 NEG_BIG = -(2**30)
@@ -386,104 +388,34 @@ def _bin_reduce(values, flat_bin, n_bins, reduce, init):
 
 
 def _post_dp_block(refs: DeviceSketch, queries: DeviceSketch,
-                   w1g, w2g, scores, roots, q_starts, q_frag_offs,
-                   cfg: ChainConfig, budgets: EngineBudgets,
+                   w1g, w2g, scores, roots, row_bounds, q_starts,
+                   q_frag_offs, cfg: ChainConfig, budgets: EngineBudgets,
                    tail_r, tail_q, r_frag_offs, frag_cid_g,
                    rcid_bits: int) -> dict:
     """Per-chain statistics + estimators for a block of P pairs.
 
     ``tail_r``/``tail_q`` [P] map each pair slot to its genome index in
-    ``refs``/``queries``.  Chains are binned by (row, root): the bins with
-    anchors are the chain ends of the JAX per-row sort, in the same
-    (row, root) order.  Kept chain ends are compacted into a
-    [P, max_chains_per_pair] table for the per-pair tail (AF unions,
-    ref-side spans); overflow is reported in the ``n_chains`` output.
-    ``frag_overflow`` [P] is set where a kept anchor or a kept chain's
-    span lies in a reference fragment >= NF, which the ref grid drops."""
+    ``refs``/``queries``.  The per-chain stage (``ops/chain_post.py``:
+    the CUDA kernel on the card) bins chains by (row, root), keeps them,
+    and compacts the kept chain ends into a [P, max_chains_per_pair]
+    table for the per-pair tail (AF unions, ref-side spans); overflow is
+    reported in the ``n_chains`` output.  ``frag_overflow`` [P] is set
+    where a kept anchor or a kept chain's span lies in a reference
+    fragment >= NF, which the ref grid drops."""
     fl = cfg.fragment_length
     NF = budgets.max_fragments
-    PF = budgets.max_anchors_per_fragment
-    CE = budgets.max_chains_per_pair
     P = tail_r.shape[0]
-    R = P * NF
     dev = w1g.device
     i64 = torch.int64
     ext_l, ext_r = cfg.extend_left, cfg.extend_right
-    rmask = (1 << rcid_bits) - 1
 
-    # ---- per-chain statistics in [R, PF] bins keyed by chain root ----
-    valid2 = (w1g & 1) == 1
-    root2 = roots.to(i64).clamp(0, PF - 1)
-    rows = torch.arange(R, device=dev, dtype=i64)[:, None]
-    flat_bin = (rows * (PF + 1) + torch.where(valid2, root2, PF)).reshape(-1)
-    nb = R * (PF + 1)
-
-    def per_chain(values, reduce, init):
-        return _bin_reduce(values, flat_bin, nb, reduce, init).view(
-            R, PF + 1)[:, :PF]
-
-    c_count = per_chain(valid2.to(i64), "sum", 0)
-    c_qmn_w = per_chain(w1g, "amin", _U32)
-    c_qmx_w = per_chain(w1g, "amax", 0)
-    c_rmn_w = per_chain(w2g, "amin", _U32)
-    c_rmx_w = per_chain(w2g, "amax", 0)
-    c_score = per_chain(scores, "amax", float("-inf"))
-    chain_end = c_count > 0
-    c_qmn = c_qmn_w >> 2
-    c_qmx = c_qmx_w >> 2
-    keep = chain_end & (c_count >= cfg.min_anchors_chain)
-    if cfg.min_chain_score > 0:
-        keep &= c_score >= cfg.min_chain_score
-    if cfg.keep_long_span > 0:
-        keep |= chain_end & (c_count >= 2) & \
-            ((c_qmx - c_qmn) >= cfg.keep_long_span)
-
-    # ---- row-level aggregates ----
-    numer = torch.where(keep, c_count, 0).sum(1)                   # [R]
-    span_lo = torch.where(keep, c_qmn - ext_l, POS_BIG).amin(1)
-    span_hi = torch.where(keep, c_qmx + ext_r, NEG_BIG).amax(1)
-
-    # ---- kept chain ends, compacted per pair in (row, root) order ----
-    keep_p = keep.view(P, NF * PF)
-    n_chains = keep_p.sum(1, dtype=torch.int32)
-    rank = torch.cumsum(keep_p.to(i64), 1) - keep_p.to(i64)
-    p_idx, flat = torch.nonzero(keep_p & (rank < CE), as_tuple=True)
-    slot = rank[p_idx, flat]
-    row_sel = torch.zeros((P, CE), dtype=i64, device=dev)
-    row_sel[p_idx, slot] = flat // PF
-    end_valid = torch.zeros((P, CE), dtype=torch.bool, device=dev)
-    end_valid[p_idx, slot] = True
-
-    def ends(plane, fill):
-        out = torch.full((P, CE), fill, dtype=plane.dtype, device=dev)
-        out[p_idx, slot] = plane.reshape(P, NF * PF)[p_idx, flat]
-        return out
-
-    end_qmn = torch.where(end_valid, ends(c_qmn_w, 0) >> 2, I32_SENTINEL)
-    end_qmx = torch.where(end_valid, ends(c_qmx_w, 0) >> 2, I32_SENTINEL)
-    rmn_w = ends(c_rmn_w, 0)
-    end_rmn = torch.where(end_valid, rmn_w >> rcid_bits, I32_SENTINEL)
-    end_rmx = torch.where(end_valid, ends(c_rmx_w, 0) >> rcid_bits,
-                          I32_SENTINEL)
-    end_rcid = torch.where(end_valid, rmn_w & rmask, 0)
-
-    C = queries.contig_lengths.shape[1]
+    st = chain_post(w1g, w2g, scores, roots, row_bounds, tail_r, r_frag_offs,
+                    cfg, NF=NF, CE=budgets.max_chains_per_pair,
+                    rcid_bits=rcid_bits)
+    (numer, span_lo, span_hi, n_chains, row_sel, end_valid, end_qmn, end_qmx,
+     end_rmn, end_rmx, end_rcid, numer_r, ref_over) = (
+        st[k] for k in POST_KEYS)
     Cr = refs.contig_lengths.shape[1]
-    pair_of_row = torch.arange(R, device=dev, dtype=i64) // NF
-    if cfg.est_side == "both":
-        # ---- ref-fragment numerators: kept anchors binned by ref frag ----
-        keep_elem = keep.gather(1, root2) & valid2
-        rcid_el = (w2g & rmask).clamp(0, Cr - 1)
-        g_of = tail_r[pair_of_row]
-        refrag = r_frag_offs[g_of[:, None], rcid_el] + (w2g >> rcid_bits) // fl
-        ok_el = keep_elem & (refrag < NF)
-        ref_over = (keep_elem & ~ok_el).view(P, NF * PF).any(1)
-        tgt = torch.where(ok_el, pair_of_row[:, None] * NF + refrag, P * NF)
-        numer_r = torch.zeros(P * NF + 1, dtype=i64, device=dev).index_add_(
-            0, tgt.reshape(-1), ok_el.to(i64).reshape(-1))[:P * NF].view(P, NF)
-    else:
-        numer_r = torch.zeros((P, NF), dtype=i64, device=dev)
-        ref_over = torch.zeros(P, dtype=torch.bool, device=dev)
 
     # ---- per-pair tail: denominators, estimators, AF unions ----
     frag_ids = torch.arange(NF, device=dev, dtype=i64)
@@ -768,8 +700,9 @@ def _chain_anchors(refs: DeviceSketch, queries: DeviceSketch, a: dict,
     with profiling.scope("chain/post", dev):
         _, r_frag_offs = _contig_layout(refs, fl)
         out = _post_dp_block(refs, queries, w1g, w2g, scores, roots,
-                             q_starts, q_frag_offs, cfg, budgets, tail_r,
-                             tail_q, r_frag_offs, frag_cid_tab, rbits)
+                             row_bounds, q_starts, q_frag_offs, cfg, budgets,
+                             tail_r, tail_q, r_frag_offs, frag_cid_tab,
+                             rbits)
     out["pos_overflow"] = torch.full((P,), pos_overflow, dtype=torch.bool,
                                      device=dev)
     bounds = row_bounds[torch.arange(P + 1, device=dev) * NF]

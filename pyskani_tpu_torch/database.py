@@ -24,7 +24,13 @@ k outside that range raises ``ValueError``, as in the JAX package.
 With profiling on (``utils/profiling.py``), ``sketch``, ``sketch_many``
 and ``query`` time the JAX package's scopes (``sketch``, ``screen``,
 ``chain``) and add to its counters (``bases_sketched``,
-``refs_screened``, ``screen_passed``, ``pairs_chained``).
+``refs_screened``, ``screen_passed``, ``pairs_chained``).  ``query``
+also times its host stages on the host clock: ``query/shortlist`` (the
+screen's passes to names, the partition and the budgets),
+``query/merge`` (the chain outputs' copies and the overflow check) and
+``query/correct`` (the learned correction, the filters and the
+``Hit``s), and counts ``hits_corrected`` (calls of
+``regression.apply_model``) and ``hits_returned``.
 """
 
 from __future__ import annotations
@@ -389,31 +395,39 @@ class Database:
         if profiling.enabled():
             profiling.stats().add("refs_screened", len(self._markers))
             profiling.stats().add("screen_passed", int(passes.sum()))
-        # shortlist in marker insertion order, deduplicated
-        shortlist = list(dict.fromkeys(
-            os.path.basename(self._markers[i].name)
-            for i in np.nonzero(passes)[0]))
+        with profiling.scope("query/shortlist"):
+            # shortlist in marker insertion order, deduplicated
+            shortlist = list(dict.fromkeys(
+                os.path.basename(self._markers[i].name)
+                for i in np.nonzero(passes)[0]))
 
-        # phase 2: chain pipelines over the shortlist.  References past
-        # the packed range of the block partition's contig bucket (or all
-        # of them, for a query >= 2^30 bp) take the full-range per-pair
-        # path; results are merged back in shortlist order
-        by_name = {os.path.basename(m.name): m for m in self._markers}
-        block_names, fb_names, cb, _ = _partition_blockable(
-            by_name, shortlist, query.total_len)
-        order = {rn: i for i, rn in enumerate(shortlist)}
+            # phase 2: chain pipelines over the shortlist.  References
+            # past the packed range of the block partition's contig bucket
+            # (or all of them, for a query >= 2^30 bp) take the full-range
+            # per-pair path; results are merged back in shortlist order.
+            # Each partition has its own budgets: a giant in one must not
+            # inflate the other's fragment budget
+            by_name = {os.path.basename(m.name): m for m in self._markers}
+            block_names, fb_names, cb, _ = _partition_blockable(
+                by_name, shortlist, query.total_len)
+            order = {rn: i for i, rn in enumerate(shortlist)}
+            block_budgets = self._budgets_for(query, set(block_names)) \
+                if block_names else None
+            fb_budgets = self._budgets_for(query, set(fb_names)) \
+                if fb_names else None
         out: dict = {}
 
         def merge(part, names_part, budgets):
-            part = {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
-                    for k, v in part.items()}
-            check_overflow(part, budgets)
-            rows = [order[rn] for rn in names_part]
-            for k, arr in part.items():
-                if k not in out:
-                    out[k] = np.zeros((len(shortlist),) + arr.shape[1:],
-                                      arr.dtype)
-                out[k][rows] = arr
+            with profiling.scope("query/merge"):
+                part = {k: v.cpu().numpy() if isinstance(v, torch.Tensor)
+                        else v for k, v in part.items()}
+                check_overflow(part, budgets)
+                rows = [order[rn] for rn in names_part]
+                for k, arr in part.items():
+                    if k not in out:
+                        out[k] = np.zeros((len(shortlist),) + arr.shape[1:],
+                                          arr.dtype)
+                    out[k][rows] = arr
 
         in_memory = isinstance(self._storage, MemoryStorage)
         if in_memory:
@@ -430,7 +444,7 @@ class Database:
             qpad = repad_sketch(query, bucket, mbucket)
         with profiling.scope("chain", self._device):
             if block_names:
-                budgets = self._budgets_for(query, set(block_names))
+                budgets = block_budgets
                 bcap = max(1, min(16, (1 << 17) // budgets.max_fragments))
                 chunk = _pow2_chunk(len(block_names), cap=bcap)
                 if in_memory:
@@ -453,9 +467,7 @@ class Database:
                         contig_budget=cb, chunk=chunk)
                 merge(part, block_names, budgets)
             if fb_names:
-                # per-partition budgets: a giant here must not inflate the
-                # block path's fragment budget, nor the other way round
-                budgets = self._budgets_for(query, set(fb_names))
+                budgets = fb_budgets
                 if in_memory:
                     refs = stack
                     idx = np.array([names_all.index(rn) for rn in fb_names],
@@ -479,21 +491,27 @@ class Database:
         def clamp(v) -> float:
             return min(max(float(v), 0.0), 1.0)
 
-        for i, ref_name in enumerate(shortlist):
-            ani = float(out[key][i])
-            af_q = float(out["af_query"][i])
-            af_r = float(out["af_ref"][i])
-            # the learned correction targets the MEAN estimator only
-            if model is not None and not median and not robust:
-                ani = regression.apply_model(model, ani, af_q, af_r)
-            if af_q < maf and af_r < maf:
-                continue
-            if ani > MIN_ANI_KEEP:
-                ci = dict(ci_low=clamp(out["ani_ci_low"][i]),
-                          ci_high=clamp(out["ani_ci_high"][i])) \
-                    if est_ci else {}
-                hits.append(Hit(clamp(ani), name, af_q, ref_name, af_r,
-                                **ci))
+        # the learned correction targets the MEAN estimator only
+        use_model = model is not None and not median and not robust
+        with profiling.scope("query/correct"):
+            for i, ref_name in enumerate(shortlist):
+                ani = float(out[key][i])
+                af_q = float(out["af_query"][i])
+                af_r = float(out["af_ref"][i])
+                if use_model:
+                    ani = regression.apply_model(model, ani, af_q, af_r)
+                if af_q < maf and af_r < maf:
+                    continue
+                if ani > MIN_ANI_KEEP:
+                    ci = dict(ci_low=clamp(out["ani_ci_low"][i]),
+                              ci_high=clamp(out["ani_ci_high"][i])) \
+                        if est_ci else {}
+                    hits.append(Hit(clamp(ani), name, af_q, ref_name, af_r,
+                                    **ci))
+        if profiling.enabled():
+            profiling.stats().add("hits_corrected",
+                                  len(shortlist) if use_model else 0)
+            profiling.stats().add("hits_returned", len(hits))
         return hits
 
     def save(self, path, overwrite: bool = False,

@@ -41,6 +41,7 @@ BASE = ("bases_sketched", "refs_screened", "screen_passed", "pairs_chained")
 SKETCH_SPANS = {"sketch/pack", "sketch/copy", "sketch/kernel",
                 "sketch/counts"}
 CHAIN_SPANS = {"chain/join", "chain/grid", "chain/dp", "chain/post"}
+HIT_COUNTERS = ("hits_corrected", "hits_returned")
 # the text torch warns with at a synchronising CUDA operation
 SYNC_TEXT = ("called a synchronizing CUDA operation (Triggered internally "
              "at /pytorch/c10/cuda/CUDAFunctions.cpp:162.)")
@@ -96,6 +97,13 @@ def test_stats_collected_through_database():
     assert 0.0 <= snap["counters"]["screen_pass_rate"] <= 1.0
 
 
+def _query_spans(queries, merges):
+    """Calls of ``query``'s host spans: a shortlist and a correction per
+    screened query, a merge per chained partition."""
+    return {"query/shortlist": queries, "query/merge": merges,
+            "query/correct": queries}
+
+
 def _drive(mod, **kw):
     """sketch, sketch_many and three queries (one hitting two
     references, one screened out, one on an empty shortlist's store)."""
@@ -130,15 +138,20 @@ def test_counters_and_calls_equal_jax():
     jax_scopes = set(want["calls"])
     assert {k: got["calls"][k] for k in jax_scopes} == want["calls"] == \
         {"sketch": 5, "screen": 2, "chain": 2}
-    assert set(got["counters"]) == set(want["counters"])
+    # the port's own counters: the hits of the two queries that reached
+    # the correction, none corrected (learned_ani=False)
+    assert set(got["counters"]) == set(want["counters"]) | set(HIT_COUNTERS)
+    assert {k: got["counters"][k] for k in HIT_COUNTERS} == \
+        {"hits_corrected": 0, "hits_returned": 3}
     assert jax_scopes == set(want["timers_s"])
     assert set(got["timers_s"]) == set(got["calls"])
     assert all(got["timers_s"][k] > 0 for k in jax_scopes)
     # the port's own spans: every sketch call's four stages, one register
-    # per stored genome, and the one chained query's chain stages
+    # per stored genome, the one chained query's chain stages and merge,
+    # and both screened queries' shortlist and correction
     assert {k: v for k, v in got["calls"].items() if k not in jax_scopes} \
         == {**dict.fromkeys(SKETCH_SPANS, 5), "register": 4,
-            **dict.fromkeys(CHAIN_SPANS, 1)}
+            **dict.fromkeys(CHAIN_SPANS, 1), **_query_spans(2, 1)}
 
 
 def test_cli_prints_stats_as_jax(tmp_path, capsys):
@@ -166,10 +179,10 @@ def test_cli_prints_stats_as_jax(tmp_path, capsys):
         {k: want["counters"][k] for k in BASE}
     assert {k: got["calls"][k] for k in want["calls"]} == want["calls"]
     # the port's own spans: the reference's and the query's sketches, the
-    # reference's registration and the query's chain stages
+    # reference's registration and the query's chain stages and host spans
     assert {k: v for k, v in got["calls"].items() if k not in want["calls"]} \
         == {**dict.fromkeys(SKETCH_SPANS, 2), "register": 1,
-            **dict.fromkeys(CHAIN_SPANS, 1)}
+            **dict.fromkeys(CHAIN_SPANS, 1), **_query_spans(1, 1)}
     profiling.disable()
     assert cli.main(argv + ["--device", "cpu"]) == 0
     assert "stats: " not in capsys.readouterr().err
@@ -302,7 +315,8 @@ def test_streamed_store_spans(tmp_path):
     assert calls == {"sketch": 1, **dict.fromkeys(SKETCH_SPANS, 1),
                      "screen": 1, "chain": 1, "stream/load": 1,
                      "storage/decode": 3, "stream/stage": 1,
-                     "stream/chain": 1, **dict.fromkeys(CHAIN_SPANS, 1)}
+                     "stream/chain": 1, **dict.fromkeys(CHAIN_SPANS, 1),
+                     **_query_spans(1, 1)}
 
 
 def _fake_cuda(monkeypatch):
@@ -393,3 +407,55 @@ def test_pending_event_pairs_stay_bounded():
                              "chain/post": 1}
     assert snap["timers_s"]["chain/dp"] == \
         pytest.approx(3 * profiling.PENDING_LIMIT * 2e-3)
+
+
+@pytest.mark.parametrize("learned", [True, False])
+def test_query_host_spans_and_hit_counters(learned):
+    """``query``'s host stages each time one call of a span per query
+    (a merge per chained partition), ``hits_corrected`` counts the calls
+    of ``apply_model`` (one per shortlisted reference, none without the
+    learned correction) and ``hits_returned`` the hits."""
+    from pyskani_tpu_torch import regression
+    rng = np.random.default_rng(13)
+    base = random_genome(rng, 40_000)
+    db = pyskani_tpu_torch.Database(device="cpu")
+    db.sketch_many([("a", [mutate(rng, base, 0.01)]),
+                    ("b", [mutate(rng, base, 0.02)]),
+                    ("c", [random_genome(rng, 30_000)])])
+    applied = []
+    apply_model = regression.apply_model
+
+    def counted(*a, **kw):
+        applied.append(1)
+        return apply_model(*a, **kw)
+
+    profiling.enable()
+    profiling.reset_stats()
+    try:
+        regression.apply_model = counted
+        hits = db.query("q", mutate(rng, base, 0.015), learned_ani=learned)
+        missed = db.query("x", random_genome(rng, 25_000),
+                          learned_ani=learned)
+    finally:
+        regression.apply_model = apply_model
+    snap = profiling.stats().snapshot()
+    assert len(hits) == 2 and missed == []
+    assert len(applied) == (2 if learned else 0)
+    assert {k: snap["counters"][k] for k in HIT_COUNTERS} == \
+        {"hits_corrected": len(applied), "hits_returned": 2}
+    spans = _query_spans(2, 1)
+    assert {k: snap["calls"][k] for k in spans} == spans
+    # host stages, on the host clock
+    assert all(snap["timers_s"][k] > 0 for k in spans)
+
+
+def test_query_spans_and_counters_off_when_disabled():
+    profiling.disable()
+    profiling.reset_stats()
+    rng = np.random.default_rng(14)
+    base = random_genome(rng, 30_000)
+    db = pyskani_tpu_torch.Database(device="cpu")
+    db.sketch("a", mutate(rng, base, 0.01))
+    assert len(db.query("q", mutate(rng, base, 0.01))) == 1
+    snap = profiling.stats().snapshot()
+    assert snap == {"counters": {}, "timers_s": {}, "calls": {}}

@@ -29,8 +29,10 @@ also times its host stages on the host clock: ``query/shortlist`` (the
 screen's passes to names, the partition and the budgets),
 ``query/merge`` (the chain outputs' copies and the overflow check) and
 ``query/correct`` (the learned correction, the filters and the
-``Hit``s), and counts ``hits_corrected`` (calls of
-``regression.apply_model``) and ``hits_returned``.
+``Hit``s), and counts ``hits_corrected`` (rows corrected),
+``correct_batches`` (calls of ``regression.apply_model_batch`` with at
+least one row: one per query the correction reached) and
+``hits_returned``.
 """
 
 from __future__ import annotations
@@ -491,26 +493,29 @@ class Database:
         def clamp(v) -> float:
             return min(max(float(v), 0.0), 1.0)
 
-        # the learned correction targets the MEAN estimator only
-        use_model = model is not None and not median and not robust
+        # the learned correction targets the MEAN estimator only: one
+        # batch over every hit, on the Database's device
+        corrected = bool(shortlist) and model is not None and not median \
+            and not robust
         with profiling.scope("query/correct"):
-            for i, ref_name in enumerate(shortlist):
-                ani = float(out[key][i])
-                af_q = float(out["af_query"][i])
-                af_r = float(out["af_ref"][i])
-                if use_model:
-                    ani = regression.apply_model(model, ani, af_q, af_r)
-                if af_q < maf and af_r < maf:
-                    continue
-                if ani > MIN_ANI_KEEP:
+            if shortlist:
+                af_q = out["af_query"].astype(np.float64)
+                af_r = out["af_ref"].astype(np.float64)
+                ani = out[key].astype(np.float64)
+                if corrected:
+                    ani = regression.apply_model_batch(model, ani, af_q, af_r,
+                                                       self._device)
+                keep = ~((af_q < maf) & (af_r < maf)) & (ani > MIN_ANI_KEEP)
+                for i in np.nonzero(keep)[0]:
                     ci = dict(ci_low=clamp(out["ani_ci_low"][i]),
                               ci_high=clamp(out["ani_ci_high"][i])) \
                         if est_ci else {}
-                    hits.append(Hit(clamp(ani), name, af_q, ref_name, af_r,
-                                    **ci))
+                    hits.append(Hit(clamp(ani[i]), name, float(af_q[i]),
+                                    shortlist[i], float(af_r[i]), **ci))
         if profiling.enabled():
             profiling.stats().add("hits_corrected",
-                                  len(shortlist) if use_model else 0)
+                                  len(shortlist) if corrected else 0)
+            profiling.stats().add("correct_batches", int(corrected))
             profiling.stats().add("hits_returned", len(hits))
         return hits
 

@@ -239,28 +239,28 @@ class ShardedDatabaseSearch:
         check_overflow({k: np.concatenate([p[k].reshape(-1) for p in planes])
                         for k in ("anchors_overflow", "frag_overflow")},
                        self._budgets)
+        # the learned correction: one batch per group over its screened
+        # pairs, on this rank's device
+        use_model = self._model is not None and not self._median \
+            and not self._robust
         out_hits: List[List[Hit]] = []
         for g, group in enumerate(groups):
-            ani = planes[g][key]
-            afq = planes[g]["af_query"]
-            afr = planes[g]["af_ref"]
-            sp = planes[g]["screen_pass"]
+            cols = slice(0, len(group))
+            sp = planes[g]["screen_pass"][:self._R, cols].astype(bool)
+            ani, afq, afr = (planes[g][k][:self._R, cols].astype(np.float64)
+                             for k in (key, "af_query", "af_ref"))
+            if use_model:
+                ri, qi = np.nonzero(sp)
+                ani[ri, qi] = regression.apply_model_batch(
+                    self._model, ani[ri, qi], afq[ri, qi], afr[ri, qi],
+                    self._mesh.device)
+            keep = sp & ~((afq < maf) & (afr < maf)) & (ani > MIN_ANI_KEEP)
             for qi, (qname, _) in enumerate(group):
-                hits: List[Hit] = []
-                for ri in range(self._R):
-                    if not sp[ri, qi]:
-                        continue
-                    a = float(ani[ri, qi])
-                    fq, fr = float(afq[ri, qi]), float(afr[ri, qi])
-                    if self._model is not None and not self._median \
-                            and not self._robust:
-                        a = regression.apply_model(self._model, a, fq, fr)
-                    if fq < maf and fr < maf:
-                        continue
-                    if a > MIN_ANI_KEEP:
-                        hits.append(Hit(min(max(a, 0.0), 1.0), qname, fq,
-                                        self._names[ri], fr))
-                out_hits.append(hits)
+                out_hits.append([
+                    Hit(min(max(float(ani[ri, qi]), 0.0), 1.0), qname,
+                        float(afq[ri, qi]), self._names[ri],
+                        float(afr[ri, qi]))
+                    for ri in np.nonzero(keep[:, qi])[0]])
         for slot, hits in zip(reg_slots, out_hits):
             results_by_slot[slot] = hits
         return [results_by_slot[i] for i in range(len(all_items))]

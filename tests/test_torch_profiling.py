@@ -41,7 +41,7 @@ BASE = ("bases_sketched", "refs_screened", "screen_passed", "pairs_chained")
 SKETCH_SPANS = {"sketch/pack", "sketch/copy", "sketch/kernel",
                 "sketch/counts"}
 CHAIN_SPANS = {"chain/join", "chain/grid", "chain/dp", "chain/post"}
-HIT_COUNTERS = ("hits_corrected", "hits_returned")
+HIT_COUNTERS = ("hits_corrected", "correct_batches", "hits_returned")
 # the text torch warns with at a synchronising CUDA operation
 SYNC_TEXT = ("called a synchronizing CUDA operation (Triggered internally "
              "at /pytorch/c10/cuda/CUDAFunctions.cpp:162.)")
@@ -142,7 +142,7 @@ def test_counters_and_calls_equal_jax():
     # the correction, none corrected (learned_ani=False)
     assert set(got["counters"]) == set(want["counters"]) | set(HIT_COUNTERS)
     assert {k: got["counters"][k] for k in HIT_COUNTERS} == \
-        {"hits_corrected": 0, "hits_returned": 3}
+        {"hits_corrected": 0, "correct_batches": 0, "hits_returned": 3}
     assert jax_scopes == set(want["timers_s"])
     assert set(got["timers_s"]) == set(got["calls"])
     assert all(got["timers_s"][k] > 0 for k in jax_scopes)
@@ -412,9 +412,10 @@ def test_pending_event_pairs_stay_bounded():
 @pytest.mark.parametrize("learned", [True, False])
 def test_query_host_spans_and_hit_counters(learned):
     """``query``'s host stages each time one call of a span per query
-    (a merge per chained partition), ``hits_corrected`` counts the calls
-    of ``apply_model`` (one per shortlisted reference, none without the
-    learned correction) and ``hits_returned`` the hits."""
+    (a merge per chained partition), ``hits_corrected`` counts the rows
+    through ``apply_model_batch`` (one per shortlisted reference, none
+    without the learned correction), ``correct_batches`` its calls (one
+    per corrected query) and ``hits_returned`` the hits."""
     from pyskani_tpu_torch import regression
     rng = np.random.default_rng(13)
     base = random_genome(rng, 40_000)
@@ -423,26 +424,29 @@ def test_query_host_spans_and_hit_counters(learned):
                     ("b", [mutate(rng, base, 0.02)]),
                     ("c", [random_genome(rng, 30_000)])])
     applied = []
-    apply_model = regression.apply_model
+    apply_model_batch = regression.apply_model_batch
 
-    def counted(*a, **kw):
-        applied.append(1)
-        return apply_model(*a, **kw)
+    def counted(model, ani, *a, **kw):
+        applied.append(len(ani))
+        return apply_model_batch(model, ani, *a, **kw)
 
     profiling.enable()
     profiling.reset_stats()
     try:
-        regression.apply_model = counted
+        regression.apply_model_batch = counted
         hits = db.query("q", mutate(rng, base, 0.015), learned_ani=learned)
         missed = db.query("x", random_genome(rng, 25_000),
                           learned_ani=learned)
     finally:
-        regression.apply_model = apply_model
+        regression.apply_model_batch = apply_model_batch
     snap = profiling.stats().snapshot()
     assert len(hits) == 2 and missed == []
-    assert len(applied) == (2 if learned else 0)
+    # the query with hits corrects its 2 shortlisted references in one
+    # batch; the one whose screen passes nothing has no rows to correct
+    assert applied == ([2] if learned else [])
     assert {k: snap["counters"][k] for k in HIT_COUNTERS} == \
-        {"hits_corrected": len(applied), "hits_returned": 2}
+        {"hits_corrected": sum(applied), "correct_batches": len(applied),
+         "hits_returned": 2}
     spans = _query_spans(2, 1)
     assert {k: snap["calls"][k] for k in spans} == spans
     # host stages, on the host clock

@@ -29,6 +29,7 @@ exits 2, as in the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import os
 import sys
@@ -99,23 +100,14 @@ def _emit(out, ref_name, query_name, ani, af_r, af_q, ci=None):
     out.write(row + "\n")
 
 
-class _out_stream:
-    """Context manager: ``-o FILE`` or stdout (skani's out_file_name)."""
-
-    def __init__(self, path):
-        self._path = path
-        self._fh = None
-
-    def __enter__(self):
-        if self._path is None:
-            return sys.stdout
-        self._fh = open(self._path, "w")
-        return self._fh
-
-    def __exit__(self, *exc):
-        if self._fh is not None:
-            self._fh.close()
-        return False
+@contextlib.contextmanager
+def _out_stream(path):
+    """``-o FILE`` or stdout (skani's out_file_name)."""
+    if path is None:
+        yield sys.stdout
+        return
+    with open(path, "w") as fh:
+        yield fh
 
 
 def _expand_lists(paths: List[str], list_files: List[str] | None) -> List[str]:
@@ -330,8 +322,9 @@ def cmd_triangle(args) -> int:
 
 
 def _write_triangle(fh, args, names, ri, qi, out) -> None:
-    key = "ani_median" if args.median else \
-        "ani_robust" if args.robust else "ani_mean"
+    from .hit import estimator_key
+
+    key = estimator_key(args.median, args.robust)
     if args.full_matrix:
         # PHYLIP-style lower-triangular matrix (skani triangle's
         # default output; the sparse TSV is this CLI's default)

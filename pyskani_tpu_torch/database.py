@@ -7,10 +7,10 @@ defaults, storage formats, exceptions and context-manager semantics;
 shortlist, then the regression and aligned-fraction filters, then
 ``Hit``, with the bootstrap interval under ``est_ci=True``).
 Shortlisted references chain on the packed block pipeline
-(``chain_block``) unless a contig of theirs lies past its position range,
-or the query is 2^30 bp or more: those pairs take the full-range per-pair
-pipeline (``chain_pairs``).  Genomes above the single-call sketch buffer
-are sketched in chunks.
+(``chain_block``) unless they or the query lie past its position range
+(``ops.chain.packed_cap``, ``MAX_PACKED_TOTAL``): those pairs take the
+full-range per-pair pipeline (``chain_pairs``).  Genomes above the
+single-call sketch buffer are sketched in chunks.
 
 Stores live in memory, or on disk (``Database(path)``, ``save``):
 ``open`` keeps only the markers in RAM and streams the shortlisted
@@ -45,20 +45,20 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from . import regression
 from .db.storage import (ConsolidatedStorage, FolderStorage, MarkerSketch,
                          MemoryStorage, load_index, load_markers)
-from .engine.batch import (check_overflow, one_vs_many, one_vs_many_pairs,
-                           repad_sketch, stack_sketches)
+from .engine.batch import (block_chunk, check_overflow, engine_budgets,
+                           one_vs_many, one_vs_many_pairs, repad_sketch,
+                           stack_buckets, stack_sketches)
 from .engine.stream import stream_one_vs_many
-from .hit import Hit
-from .ops.chain import ChainConfig, EngineBudgets, rcid_bits_for
+from .hit import Hit, screened_hits
+from .ops.chain import (MAX_PACKED_TOTAL, ChainConfig, EngineBudgets,
+                        packed_cap)
 from .ops.screen import screen_batch
 from .ops.sketch import (HostSketch, contig_budget_for, marker_budget_for,
                          round_up, seed_budget_for, sketch_genome_device,
                          sketch_genomes_device)
-from .params import (MIN_ANI_KEEP, CommandParams, SEARCH_ANI_CUTOFF_DEFAULT,
-                     SketchParams)
+from .params import SEARCH_ANI_CUTOFF_DEFAULT, SketchParams
 from .utils import profiling
 
 _Sequence = Union[str, bytes, bytearray, memoryview]
@@ -112,16 +112,17 @@ def _partition_blockable(by_name, shortlist, query_total: int = 0):
 
     ``block_names`` chain on the packed block pipeline whose contig bucket
     ``cb`` (max over block members) gives the position cap
-    ``2^(32-rcid_bits)``; ``fb_names`` exceed the cap and need the
-    full-range per-pair pipeline.  Iterated to a fixed point.  Queries
-    >= 2^30 bp total route every reference to the full-range path."""
-    if query_total >= (1 << 30):
-        return [], list(shortlist), 8, 1 << (32 - rcid_bits_for(8))
+    ``ops.chain.packed_cap(cb)``; ``fb_names`` exceed the cap and need the
+    full-range per-pair pipeline.  Iterated to a fixed point.  Queries of
+    ``MAX_PACKED_TOTAL`` bp or more route every reference to the
+    full-range path."""
+    if query_total >= MAX_PACKED_TOTAL:
+        return [], list(shortlist), 8, packed_cap(8)
     block = list(shortlist)
     while True:
         cb = max((contig_budget_for(len(by_name[rn].contig_lengths))
                   for rn in block), default=8)
-        cap = 1 << (32 - rcid_bits_for(cb))
+        cap = packed_cap(cb)
         viol = {rn for rn in block
                 if max(by_name[rn].contig_lengths, default=0) >= cap}
         if not viol:
@@ -129,14 +130,6 @@ def _partition_blockable(by_name, shortlist, query_total: int = 0):
         block = [rn for rn in block if rn not in viol]
     blocked = set(block)
     return block, [rn for rn in shortlist if rn not in blocked], cb, cap
-
-
-def _pow2_chunk(n: int, cap: int = 16) -> int:
-    """Bucket a chunk size to a power of two."""
-    p = 1
-    while p < min(max(n, 1), cap):
-        p *= 2
-    return p
 
 
 def _resolve_device(device) -> torch.device:
@@ -177,13 +170,8 @@ class Database:
     def __init__(self, path=None, *, compression: int = 125,
                  marker_compression: int = 1000, k: int = 15,
                  format: Optional[str] = None, device=None):
-        self._device = _resolve_device(device)
-        self._params = SketchParams(c=compression,
-                                    marker_c=marker_compression, k=k)
-        self._markers: List[MarkerSketch] = []
-        self._chain_cfg = _chain_cfg_for(self._params)
-        self._screen_cache = None
-        self._stack_cache = None
+        self._setup(device, SketchParams(
+            c=compression, marker_c=marker_compression, k=k), [])
         if path is None:
             self._storage = MemoryStorage()
             return
@@ -200,14 +188,8 @@ class Database:
         markers_path = folder / "markers.bin"
         if not markers_path.exists():
             raise OSError(2, f"Failed to open {markers_path}")
-        params, markers = load_markers(markers_path)
         self = cls.__new__(cls)
-        self._device = _resolve_device(device)
-        self._params = params
-        self._markers = markers
-        self._chain_cfg = _chain_cfg_for(params)
-        self._screen_cache = None
-        self._stack_cache = None
+        self._setup(device, *load_markers(markers_path))
         if (folder / "index.db").exists() and \
                 (folder / "sketches.db").exists():
             self._storage = ConsolidatedStorage(folder, load_index(folder),
@@ -215,6 +197,15 @@ class Database:
         else:
             self._storage = FolderStorage(folder, device=self._device)
         return self
+
+    def _setup(self, device, params: SketchParams,
+               markers: List[MarkerSketch]) -> None:
+        self._device = _resolve_device(device)
+        self._params = params
+        self._markers = markers
+        self._chain_cfg = _chain_cfg_for(params)
+        self._screen_cache = None
+        self._stack_cache = None
 
     @classmethod
     def load(cls, path, *, device=None) -> "Database":
@@ -254,16 +245,17 @@ class Database:
     def sketch(self, name: str, *contigs: _Sequence, seed: bool = True) -> None:
         """Add a reference genome to the database.  ``seed=False`` skips
         seed-position recording: the sketch screens but never chains."""
-        self._sketch(name, [_as_bytes(c) for c in contigs], seed)
+        self._register_sketch(
+            self._sketch(name, [_as_bytes(c) for c in contigs], seed))
 
-    def _sketch(self, name: str, data, seed: bool = True) -> Sketch:
+    def _sketch(self, name: str, data, seed: bool) -> HostSketch:
+        """One genome's sketch, on the Database's device."""
         with profiling.scope("sketch", self._device):
             host = sketch_genome_device(name, data, self._params, seed=seed,
                                         device=self._device)
         if profiling.enabled():
             profiling.stats().add("bases_sketched", sum(map(len, data)))
-        self._register_sketch(host)
-        return Sketch(host, self._params.c)
+        return host
 
     def sketch_many(self, named_contigs) -> None:
         """Add many reference genomes, sketched in batched passes of up
@@ -318,39 +310,47 @@ class Database:
     def _budgets_for(self, query: HostSketch, shortlist=None) -> EngineBudgets:
         fl = self._chain_cfg.fragment_length
         # the fragment budget covers BOTH estimation grids: the query and
-        # the longest shortlisted reference, bucketed to limit shapes
-        nf_q = query.n_fragments(fl)
+        # the longest shortlisted reference; past 384 it is bucketed to a
+        # power of two, to limit the shapes a store's queries compile
         markers = self._markers if shortlist is None else \
             [m for m in self._markers
              if os.path.basename(m.name) in shortlist]
         nf_r = max((sum(max(1, -(-L // fl)) for L in m.contig_lengths)
                     for m in markers), default=1)
-        nf = round_up(max(nf_q, nf_r) + 2, 128)
+        budgets = engine_budgets(query.device.seed_budget,
+                                 max(query.n_fragments(fl), nf_r))
+        nf = budgets.max_fragments
         if nf > 384:
             p = 512
             while p < nf:
                 p *= 2
-            nf = p
-        qa = query.device.seed_budget
-        return EngineBudgets(
-            max_anchors=round_up(int(qa * 1.5) + 4096, 8192),
-            max_fragments=nf,
-            max_anchors_per_fragment=256,
-        )
+            budgets = dataclasses.replace(budgets, max_fragments=p)
+        return budgets
+
+    def _store_buckets(self, names, streamed: bool):
+        """(seed, marker, contig) buckets of the stored genomes ``names``.
+        A streamed store's come from the markers' lengths, so that no
+        sketch is read to size them; a placed store's from the stored
+        sketches' counts."""
+        if streamed:
+            by_name = {os.path.basename(m.name): m for m in self._markers}
+            markers = [by_name[n] for n in names]
+            tl = max((m.total_len for m in markers), default=0)
+            return (seed_budget_for(tl, self._params.c),
+                    marker_budget_for(tl, self._params.marker_c),
+                    max((contig_budget_for(len(m.contig_lengths))
+                         for m in markers), default=8))
+        return stack_buckets([self._storage.load(n) for n in names],
+                             seed_step=8192)
 
     def _ref_stack(self):
         """(names, stacked DeviceSketch, seed_bucket, marker_bucket) for
         the whole reference store, cached until the next sketch."""
         if self._stack_cache is None:
             names = [os.path.basename(m.name) for m in self._markers]
-            refs = [self._storage.load(n) for n in names]
-            counts = torch.stack([torch.stack([r.device.n_seeds,
-                                               r.device.n_markers])
-                                  for r in refs]).cpu()
-            bucket = round_up(int(counts[:, 0].max()), 8192)
-            mbucket = round_up(int(counts[:, 1].max()), 512)
-            stack = stack_sketches(refs, seed_budget=bucket,
-                                   marker_budget=mbucket)
+            bucket, mbucket, cb = self._store_buckets(names, streamed=False)
+            stack = stack_sketches([self._storage.load(n) for n in names],
+                                   bucket, mbucket, cb)
             self._stack_cache = (names, stack, bucket, mbucket)
         return self._stack_cache
 
@@ -363,20 +363,7 @@ class Database:
         ``est_ci=True`` also computes the [5%, 95%] percentile-bootstrap
         interval of the ANI (skani's ``--ci``) into ``Hit.ci_low`` /
         ``Hit.ci_high``."""
-        data = [_as_bytes(c) for c in contigs]
-        with profiling.scope("sketch", self._device):
-            query = sketch_genome_device(name, data, self._params,
-                                         seed=seed, device=self._device)
-        if profiling.enabled():
-            profiling.stats().add("bases_sketched", sum(map(len, data)))
-        learned = learned_ani if learned_ani is not None else \
-            regression.use_learned_ani(self._params.c, False, False, median)
-        cmd = CommandParams(
-            screen_val=(cutoff if cutoff is not None
-                        else SEARCH_ANI_CUTOFF_DEFAULT),
-            robust=robust, median=median, learned_ani=learned,
-            rescue_small=not faster_small, est_ci=est_ci)
-        model = regression.get_model(self._params.c, cmd.learned_ani)
+        query = self._sketch(name, [_as_bytes(c) for c in contigs], seed)
         cfg = dataclasses.replace(self._chain_cfg, est_ci=True) if est_ci \
             else self._chain_cfg
 
@@ -390,9 +377,9 @@ class Database:
         with profiling.scope("screen", self._device):
             passes, _ = screen_batch(
                 qdev.markers_hi, qdev.markers_lo, qdev.n_markers,
-                hi, lo, counts, cmd.screen_val,
-                marker_k=self._params.marker_k,
-                rescue_small=cmd.rescue_small)
+                hi, lo, counts,
+                cutoff if cutoff is not None else SEARCH_ANI_CUTOFF_DEFAULT,
+                marker_k=self._params.marker_k, rescue_small=not faster_small)
             passes = passes.cpu().numpy()
         if profiling.enabled():
             profiling.stats().add("refs_screened", len(self._markers))
@@ -434,21 +421,16 @@ class Database:
         in_memory = isinstance(self._storage, MemoryStorage)
         if in_memory:
             names_all, stack, bucket, mbucket = self._ref_stack()
-            qpad = repad_sketch(query, max(bucket, qdev.seed_budget),
-                                max(mbucket, qdev.marker_budget))
         else:
-            # a disk store: budgets from the shortlist's lengths
-            tl = max((by_name[rn].total_len for rn in shortlist), default=0)
-            bucket = max(seed_budget_for(tl, self._params.c),
-                         qdev.seed_budget)
-            mbucket = max(marker_budget_for(tl, self._params.marker_c),
-                          qdev.marker_budget)
-            qpad = repad_sketch(query, bucket, mbucket)
+            # a disk store: buckets from the shortlist's markers
+            bucket, mbucket, _ = self._store_buckets(shortlist, streamed=True)
+        bucket = max(bucket, qdev.seed_budget)
+        mbucket = max(mbucket, qdev.marker_budget)
+        qpad = repad_sketch(query, bucket, mbucket)
         with profiling.scope("chain", self._device):
             if block_names:
                 budgets = block_budgets
-                bcap = max(1, min(16, (1 << 17) // budgets.max_fragments))
-                chunk = _pow2_chunk(len(block_names), cap=bcap)
+                chunk = block_chunk(len(block_names), budgets)
                 if in_memory:
                     # the contig axis is cut to the block partition's bucket:
                     # every block-routed genome's contigs fit it
@@ -480,38 +462,19 @@ class Database:
                         mbucket)
                     idx = np.arange(len(fb_names))
                 part = one_vs_many_pairs(refs, qpad, idx, cfg=cfg,
-                                         budgets=budgets,
-                                         chunk=_pow2_chunk(len(idx), cap=4))
+                                         budgets=budgets)
                 merge(part, fb_names, budgets)
         if profiling.enabled():
             profiling.stats().add("pairs_chained", len(shortlist))
 
-        key = "ani_median" if median else \
-            "ani_robust" if robust else "ani_mean"
-        maf = cmd.min_aligned_frac
-
-        def clamp(v) -> float:
-            return min(max(float(v), 0.0), 1.0)
-
-        # the learned correction targets the MEAN estimator only: one
-        # batch over every hit, on the Database's device
-        corrected = bool(shortlist) and model is not None and not median \
-            and not robust
+        # the learned correction: one batch over every shortlisted
+        # reference, on the Database's device
+        corrected = False
         with profiling.scope("query/correct"):
             if shortlist:
-                af_q = out["af_query"].astype(np.float64)
-                af_r = out["af_ref"].astype(np.float64)
-                ani = out[key].astype(np.float64)
-                if corrected:
-                    ani = regression.apply_model_batch(model, ani, af_q, af_r,
-                                                       self._device)
-                keep = ~((af_q < maf) & (af_r < maf)) & (ani > MIN_ANI_KEEP)
-                for i in np.nonzero(keep)[0]:
-                    ci = dict(ci_low=clamp(out["ani_ci_low"][i]),
-                              ci_high=clamp(out["ani_ci_high"][i])) \
-                        if est_ci else {}
-                    hits.append(Hit(clamp(ani[i]), name, float(af_q[i]),
-                                    shortlist[i], float(af_r[i]), **ci))
+                hits, _, corrected = screened_hits(
+                    out, [name] * len(shortlist), shortlist, self._params.c,
+                    learned_ani, median, robust, self._device)
         if profiling.enabled():
             profiling.stats().add("hits_corrected",
                                   len(shortlist) if corrected else 0)

@@ -19,8 +19,9 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from ..ops.chain import (ChainConfig, EngineBudgets, chain_block,
-                         chain_pairs, chain_triangle, rcid_bits_for)
+from ..ops.chain import (MAX_GRID_ROWS, ChainConfig, EngineBudgets,
+                         chain_block, chain_pairs, chain_triangle,
+                         fits_packed, grid_fits)
 from ..ops.sketch import (FIELDS, I32_SENTINEL, U32_SENTINEL, DeviceSketch,
                           HostSketch, contig_budget_for, pad_to,
                           round_up)
@@ -63,18 +64,24 @@ def repad_sketch(host: HostSketch, seed_budget: int, marker_budget: int,
     return DeviceSketch(**fields)
 
 
-def _stack(sketches: Sequence[HostSketch], seed_budget, marker_budget,
-           contig_budget, pin: bool = False) -> DeviceSketch:
+def stack_buckets(sketches: Sequence[HostSketch], seed_step: int = 1024):
+    """(seed, marker, contig) budgets that hold every sketch of
+    ``sketches``: the largest counts, read in one copy, rounded up to
+    ``seed_step`` and 512, and the largest contig-table bucket."""
     counts = torch.stack([torch.stack([s.device.n_seeds, s.device.n_markers,
                                        s.device.n_contigs])
                           for s in sketches]).cpu()
-    if seed_budget is None:
-        seed_budget = round_up(int(counts[:, 0].max()), 1024)
-    if marker_budget is None:
-        marker_budget = round_up(int(counts[:, 1].max()), 512)
-    cb = contig_budget if contig_budget is not None else \
-        max(contig_budget_for(int(c)) for c in counts[:, 2])
-    padded = [repad_sketch(s, seed_budget, marker_budget, cb)
+    return (round_up(int(counts[:, 0].max()), seed_step),
+            round_up(int(counts[:, 1].max()), 512),
+            max(contig_budget_for(int(c)) for c in counts[:, 2]))
+
+
+def _stack(sketches: Sequence[HostSketch], seed_budget, marker_budget,
+           contig_budget, pin: bool = False) -> DeviceSketch:
+    sb, mb, cb = stack_buckets(sketches)
+    padded = [repad_sketch(s, sb if seed_budget is None else seed_budget,
+                           mb if marker_budget is None else marker_budget,
+                           cb if contig_budget is None else contig_budget)
               for s in sketches]
     fields = {}
     for f in FIELDS:
@@ -145,18 +152,17 @@ def one_vs_many(refs: DeviceSketch, query: DeviceSketch, ref_idx,
 
 
 def one_vs_many_pairs(refs: DeviceSketch, query: DeviceSketch, ref_idx,
-                      *, cfg: ChainConfig, budgets: EngineBudgets,
-                      chunk: int = 4) -> dict:
+                      *, cfg: ChainConfig, budgets: EngineBudgets) -> dict:
     """Full-range variant of :func:`one_vs_many` built on ``chain_pairs``
     (no packed block-grid caps: contigs up to 2^31 bp and genomes of any
-    total length).  Each chunk of up to ``chunk`` references is one DP
-    launch; every pair has its own anchor pool, so the last chunk needs
-    no padding.  Returns a dict of [len(ref_idx)] tensors."""
+    total length).  Each chunk of up to 4 references is one DP launch, as
+    in :func:`pairs_ani`; every pair has its own anchor pool, so the last
+    chunk needs no padding.  Returns a dict of [len(ref_idx)] tensors."""
     idx = torch.as_tensor(np.asarray(ref_idx), dtype=torch.int64,
                           device=refs.device)
     parts = []
-    for lo in range(0, idx.shape[0], chunk):
-        sel = idx[lo:lo + chunk]
+    for lo in range(0, idx.shape[0], 4):
+        sel = idx[lo:lo + 4]
         q = query.map(lambda x: x[None].expand((sel.shape[0],) + x.shape))
         parts.append(chain_pairs(take_sketch(refs, sel), q, cfg=cfg,
                                  budgets=budgets))
@@ -181,25 +187,69 @@ def pairs_ani(batch: DeviceSketch, ref_idx, query_idx, *, cfg: ChainConfig,
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
+def engine_budgets(seed_budget: int, n_fragments: int) -> EngineBudgets:
+    """Budgets for genomes of at most ``n_fragments`` fragments and seed
+    tables ``seed_budget`` wide, bucketed to limit shapes."""
+    return EngineBudgets(
+        max_anchors=round_up(seed_budget * 3 // 2 + 4096, 8192),
+        max_fragments=round_up(n_fragments + 2, 128),
+        max_anchors_per_fragment=256)
+
+
 def default_budgets(sketches: List[HostSketch], batch: DeviceSketch,
                     cfg: ChainConfig) -> EngineBudgets:
     """The triangle's budgets: fragments for the largest genome, and an
     anchor pool per pair from the stack's seed budget."""
-    fl = cfg.fragment_length
-    nf = round_up(max(s.n_fragments(fl) for s in sketches) + 2, 128)
-    return EngineBudgets(
-        max_anchors=round_up(batch.kmers.shape[1] * 3 // 2 + 4096, 8192),
-        max_fragments=nf,
-        max_anchors_per_fragment=256)
+    return engine_budgets(batch.kmers.shape[1], max(
+        s.n_fragments(cfg.fragment_length) for s in sketches))
 
 
 def max_triangle_group(budgets: EngineBudgets, cap: int = 32) -> int:
     """Largest genome-group size whose triangle fits the pair-grid limit
-    (pairs * max_fragments <= 2^17, see chain_triangle)."""
+    (``ops.chain.grid_fits``, see chain_triangle)."""
     g = cap
-    while g > 2 and (g * (g - 1) // 2) * budgets.max_fragments > (1 << 17):
+    while g > 2 and not grid_fits(g * (g - 1) // 2, budgets.max_fragments):
         g -= 1
     return g
+
+
+def max_tile(budgets: EngineBudgets, cap: int) -> int:
+    """Side of the largest square ``chain_block`` tile, ``cap`` halved
+    until its pairs fit the pair-grid limit."""
+    block = cap
+    while block > 1 and not grid_fits(block * block, budgets.max_fragments):
+        block //= 2
+    return block
+
+
+def square_tiles(ridx, qidx, block: int):
+    """The ``block`` x ``block`` ``chain_block`` tiles of ``ridx`` x
+    ``qidx``: (ref rows, query rows, both padded to ``block`` with their
+    first genome, which shares the tile's anchor pool, as JAX pads)."""
+    for bi in range(0, len(ridx), block):
+        for bj in range(0, len(qidx), block):
+            r, q = ridx[bi:bi + block], qidx[bj:bj + block]
+            yield (r, q, np.concatenate([r, np.full(block - len(r), r[0])]),
+                   np.concatenate([q, np.full(block - len(q), q[0])]))
+
+
+def split_giants(n: int, giant: List[int]) -> tuple:
+    """(the packable genomes of ``n``, and the (ref, query) indices of the
+    pairs that touch a genome of ``giant``, in triu order): those pairs
+    take ``pairs_ani``, the others the packed paths."""
+    ri, qi = np.triu_indices(n, k=1)
+    touch = np.isin(ri, giant) | np.isin(qi, giant)
+    return np.setdiff1d(np.arange(n), giant), ri[touch], qi[touch]
+
+
+def block_chunk(n: int, budgets: EngineBudgets) -> int:
+    """:func:`one_vs_many`'s chunk for ``n`` references: a power of two
+    up to 16 whose pairs fit the pair-grid limit."""
+    cap = max(1, min(16, MAX_GRID_ROWS // budgets.max_fragments))
+    p = 1
+    while p < min(max(n, 1), cap):
+        p *= 2
+    return p
 
 
 def triangle(sketches: List[HostSketch], cfg: ChainConfig | None = None,
@@ -210,14 +260,11 @@ def triangle(sketches: List[HostSketch], cfg: ChainConfig | None = None,
 
     Genomes are split into groups of up to ``group``: each group's own
     pairs run as ONE ``chain_triangle``, and each cross-group rectangle
-    as ``chain_block`` tiles of ``block`` x ``block`` (default: the group
-    size, halved until it fits the pair-grid limit), the last tiles
-    padded with their first genome, which shares the tile's anchor pool
-    as in the JAX package.  A genome whose contigs pass the packed
-    position range of the stack's contig table, or whose total is 2^30 bp
-    or more, takes ``pairs_ani`` for every pair it is in (the smaller
-    index as the reference).  ``anchors_per_pair`` sizes each call's
-    shared anchor pool (default: the per-pair budget).
+    as :func:`square_tiles` of ``block`` (default: :func:`max_tile` of the
+    group size).  A genome that fails ``ops.chain.fits_packed`` takes
+    ``pairs_ani`` for every pair it is in (the smaller index as the
+    reference).  ``anchors_per_pair`` sizes each call's shared anchor
+    pool (default: the per-pair budget).
 
     Returns (ref_idx, query_idx, dict of numpy arrays) over the N(N-1)/2
     unordered pairs in ``np.triu_indices`` order.  A key that one path
@@ -244,19 +291,17 @@ def _triangle(sketches, cfg, budgets, block, anchors_per_pair, group):
     group = max_triangle_group(budgets, min(group, n))
     app = anchors_per_pair or budgets.max_anchors
     if block is None:
-        block = group
-        while block > 1 and block * block * budgets.max_fragments > (1 << 17):
-            block //= 2
+        block = max_tile(budgets, group)
     dev = batch.device
 
     def take(idx):
         return take_sketch(batch, torch.as_tensor(idx, dtype=torch.int64,
                                                   device=dev))
 
-    cap = 1 << (32 - rcid_bits_for(batch.contig_lengths.shape[1]))
-    giant = {i for i, s in enumerate(sketches)
-             if max(s.lengths, default=0) >= cap or s.total_len >= (1 << 30)}
-    pk = np.array([i for i in range(n) if i not in giant], np.int64)
+    cb = batch.contig_lengths.shape[1]
+    pk, ri_f, qi_f = split_giants(n, [
+        i for i, s in enumerate(sketches)
+        if not fits_packed(max(s.lengths, default=0), s.total_len, cb)])
     starts = list(range(0, len(pk), group))
     pending = []          # (ref indices, query indices, dict of [P] tensors)
     for a in starts:
@@ -271,50 +316,43 @@ def _triangle(sketches, cfg, budgets, block, anchors_per_pair, group):
                     len(gidx) * (len(gidx) - 1) // 2 * app, 8192))
         tri_r, tri_q = np.triu_indices(len(gidx), k=1)
         pending.append((gidx[tri_r], gidx[tri_q], out))
-    fb = [(i, j) for i in range(n) for j in range(i + 1, n)
-          if i in giant or j in giant]
-    if fb:
-        ri_f, qi_f = (np.array(x, np.int64) for x in zip(*fb))
+    if len(ri_f):
         with profiling.scope("triangle/pairs_ani", dev):
             pending.append((ri_f, qi_f, pairs_ani(
                 batch, ri_f, qi_f, cfg=cfg, budgets=budgets)))
     for a in starts:
-        ridx_g = pk[a:a + group]
-        for b in starts:
-            if b <= a:
-                continue
-            qidx_g = pk[b:b + group]
-            for bi in range(0, len(ridx_g), block):
-                for bj in range(0, len(qidx_g), block):
-                    ridx = ridx_g[bi:bi + block]
-                    qidx = qidx_g[bj:bj + block]
-                    rpad = np.concatenate(
-                        [ridx, np.full(block - len(ridx), ridx[0])])
-                    qpad = np.concatenate(
-                        [qidx, np.full(block - len(qidx), qidx[0])])
-                    with profiling.scope("triangle/cross", dev):
-                        out = chain_block(
-                            take(rpad), take(qpad), cfg=cfg,
-                            budgets=budgets,
-                            total_anchors=round_up(block * block * app,
-                                                   8192))
-                    rr, qq = np.meshgrid(ridx, qidx, indexing="ij")
-                    pending.append((rr.reshape(-1), qq.reshape(-1), {
-                        k: v[:len(ridx), :len(qidx)].reshape(-1)
-                        for k, v in out.items()}))
+        for b in starts[a // group + 1:]:
+            for ridx, qidx, rpad, qpad in square_tiles(
+                    pk[a:a + group], pk[b:b + group], block):
+                with profiling.scope("triangle/cross", dev):
+                    out = chain_block(
+                        take(rpad), take(qpad), cfg=cfg, budgets=budgets,
+                        total_anchors=round_up(block * block * app, 8192))
+                rr, qq = np.meshgrid(ridx, qidx, indexing="ij")
+                pending.append((rr, qq, {k: v[:len(ridx), :len(qidx)]
+                                         for k, v in out.items()}))
 
     with profiling.scope("triangle/merge"):
-        mats = {}
-        for ridx, qidx, out in pending:
-            for key, val in out.items():
-                arr = val.cpu().numpy()
-                if key not in mats:
-                    mats[key] = np.zeros((n, n), arr.dtype)
-                mats[key][ridx, qidx] = arr
-        ri, qi = np.triu_indices(n, k=1)
-        out = {k: v[ri, qi] for k, v in mats.items()}
+        ri, qi, out = assemble(n, [
+            (ridx, qidx, {k: v.cpu().numpy() for k, v in part.items()})
+            for ridx, qidx, part in pending])
         check_overflow(out, budgets)
     return ri, qi, out
+
+
+def assemble(G: int, parts) -> tuple:
+    """(ri, qi, dict of [P] arrays) in ``np.triu_indices`` order from
+    (ref idx, query idx, dict of arrays) parts; a key that one part lacks
+    reads 0 for its pairs."""
+    mats = {}
+    for ri_p, qi_p, res in parts:
+        for key, val in res.items():
+            arr = np.asarray(val)
+            if key not in mats:
+                mats[key] = np.zeros((G, G), arr.dtype)
+            mats[key][ri_p, qi_p] = arr
+    ri, qi = np.triu_indices(G, k=1)
+    return ri, qi, {k: v[ri, qi] for k, v in mats.items()}
 
 
 def check_overflow(out: dict, budgets: EngineBudgets,

@@ -327,11 +327,35 @@ def _ref_spans(clens_r, r_fo, keep_f, rmn_f, rmx_f, rcid_f,
     return span_lo[:, :NF], span_hi[:, :NF], dropped
 
 
+# The packed paths' limits: one call's DP grid holds MAX_GRID_ROWS rows
+# (pairs * max_fragments); a query's total stays below MAX_PACKED_TOTAL, as
+# its positions pack into 30 bits of w1 in genome-global coordinates.
+MAX_GRID_ROWS = 1 << 17
+MAX_PACKED_TOTAL = 1 << 30
+
+
 def rcid_bits_for(C: int) -> int:
     """Bits of the packed block-grid word w2 allotted to the ref contig
     id, sized from the contig-table budget ``C`` (a power of two); the
     remaining ``32 - bits`` go to the in-contig position."""
     return max(1, (C - 1).bit_length())
+
+
+def packed_cap(contig_budget: int) -> int:
+    """Exclusive bound on a reference contig's length on the packed grid
+    of a stack whose contig table is ``contig_budget`` wide."""
+    return 1 << (32 - rcid_bits_for(contig_budget))
+
+
+def fits_packed(longest: int, total: int, contig_budget: int) -> bool:
+    """Whether a genome can take either side of a packed pair; one that
+    cannot takes ``chain_pairs``."""
+    return longest < packed_cap(contig_budget) and total < MAX_PACKED_TOTAL
+
+
+def grid_fits(pairs: int, max_fragments: int) -> bool:
+    """Whether ``pairs`` pairs fit one packed call's DP grid."""
+    return pairs * max_fragments <= MAX_GRID_ROWS
 
 
 def _pack_grid_words(qpos, rpos, rcid, rev, rcid_bits: int):
@@ -629,7 +653,7 @@ def chain_block(refs: DeviceSketch, queries: DeviceSketch, *,
     G_r = refs.kmers.shape[0]
     G_q = queries.kmers.shape[0]
     P = G_r * G_q
-    if P * NF > (1 << 17):
+    if not grid_fits(P, NF):
         raise ValueError(f"block too large: pairs*max_fragments = {P * NF} "
                          f"exceeds 2^17 (shrink the block or fragments)")
     if total_anchors is None:
@@ -684,11 +708,12 @@ def _chain_anchors(refs: DeviceSketch, queries: DeviceSketch, a: dict,
         rbits = rcid_bits_for(refs.contig_lengths.shape[1])
         w1, w2 = _pack_grid_words(qpos_s, rpos_s, rcid_s, rev_s, rbits)
         # positions past the packed word ranges would corrupt results: ref
-        # contigs >= 2^(32-rbits) bp, query contigs >= 2^30 bp, and query
-        # totals >= 2^30 bp (the post-DP works in genome-global coordinates)
-        pos_overflow = bool((rpos_s >= (1 << (32 - rbits))).any()) or \
-            bool((queries.contig_lengths.to(i64) >= (1 << 30)).any()) or \
-            bool((queries.total_len >= (1 << 30)).any())
+        # contigs past packed_cap, query contigs or totals past
+        # MAX_PACKED_TOTAL (the rule that fits_packed states on the host)
+        rcap = packed_cap(refs.contig_lengths.shape[1])
+        pos_overflow = bool((rpos_s >= rcap).any()) or \
+            bool((queries.contig_lengths.to(i64) >= MAX_PACKED_TOTAL).any()) \
+            or bool((queries.total_len >= MAX_PACKED_TOTAL).any())
         R = P * NF
         (w1g, w2g), row_bounds = _grid_from_sorted_stream(
             rowid_s, ((w1, 0), (w2, 0)), R, PF)
@@ -821,7 +846,7 @@ def chain_triangle(genomes: DeviceSketch, *, cfg: ChainConfig,
     NF = budgets.max_fragments
     G = genomes.kmers.shape[0]
     P = (G * (G - 1)) // 2
-    if P * NF > (1 << 17):
+    if not grid_fits(P, NF):
         raise ValueError(f"triangle too large: pairs*max_fragments = "
                          f"{P * NF} exceeds 2^17 (split the genome set)")
     if total_anchors is None:

@@ -40,9 +40,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..engine.batch import check_overflow, pairs_ani, take_sketch
-from ..ops.chain import ChainConfig, EngineBudgets, chain_block, chain_pairs
-from ..ops.chain import rcid_bits_for
+from ..engine.batch import (assemble, check_overflow, max_tile, pairs_ani,
+                            split_giants, square_tiles, take_sketch)
+from ..ops.chain import (ChainConfig, EngineBudgets, chain_block, chain_pairs,
+                         fits_packed, grid_fits)
 from ..ops.screen import screen_batch
 from ..ops.sketch import FIELDS, DeviceSketch, round_up
 from .mesh import Mesh, make_mesh  # noqa: F401  (re-export, as in JAX)
@@ -215,31 +216,15 @@ def make_sharded_search(mesh: Mesh, cfg: ChainConfig, budgets: EngineBudgets,
 
 # ---- all-vs-all ----
 
-def _giant_mask(batch: DeviceSketch) -> np.ndarray:
-    """Per-genome bool mask: contigs beyond the packed block-grid range or
-    totals >= 2^30 bp (both take the full-range per-pair pipeline)."""
+def _giants(batch: DeviceSketch) -> List[int]:
+    """The genomes of a stack that fail ``ops.chain.fits_packed``: they
+    take the full-range per-pair pipeline."""
     cl = batch.contig_lengths.to(torch.int64).cpu()
-    cap = 1 << (32 - rcid_bits_for(cl.shape[1]))
-    return ((cl.max(dim=1).values >= cap) |
-            (cl.sum(dim=1) >= (1 << 30))).numpy()
+    return [i for i, c in enumerate(cl.tolist())
+            if not fits_packed(max(c), sum(c), cl.shape[1])]
 
 
-def _assemble(G: int, parts) -> tuple:
-    """(ri, qi, dict of [P] arrays) in ``np.triu_indices`` order from
-    (ref idx, query idx, dict of arrays) parts; a key that one part lacks
-    reads 0 for its pairs."""
-    mats = {}
-    for ri_p, qi_p, res in parts:
-        for key, val in res.items():
-            arr = np.asarray(val)
-            if key not in mats:
-                mats[key] = np.zeros((G, G), arr.dtype)
-            mats[key][ri_p, qi_p] = arr
-    ri, qi = np.triu_indices(G, k=1)
-    return ri, qi, {k: v[ri, qi] for k, v in mats.items()}
-
-
-def _triangle_with_giants(batch: DeviceSketch, mesh: Mesh, mask: np.ndarray,
+def _triangle_with_giants(batch: DeviceSketch, mesh: Mesh, giants,
                           clean_fn, *, cfg: ChainConfig,
                           budgets: EngineBudgets, **kw):
     """The triangle of a stack that holds giant genomes: the other genomes
@@ -251,8 +236,7 @@ def _triangle_with_giants(batch: DeviceSketch, mesh: Mesh, mask: np.ndarray,
     ``budgets.max_fragments`` must cover the giants' fragment counts:
     ``check_overflow`` raises on ``frag_overflow``."""
     G = batch.kmers.shape[0]
-    giants = set(np.nonzero(mask)[0].tolist())
-    keep = np.array([i for i in range(G) if i not in giants], np.int64)
+    keep, ri_f, qi_f = split_giants(G, giants)
     batch = replicate(mesh, batch)
     parts = []
     if len(keep) >= 2:
@@ -260,15 +244,12 @@ def _triangle_with_giants(batch: DeviceSketch, mesh: Mesh, mask: np.ndarray,
         ri_s, qi_s, res_s = clean_fn(sub, mesh, cfg=cfg, budgets=budgets,
                                      **kw)
         parts.append((keep[ri_s], keep[qi_s], res_s))
-    fb = [(i, j) for i in range(G) for j in range(i + 1, G)
-          if i in giants or j in giants]
-    if fb:
-        ri_f, qi_f = (np.array(x, np.int64) for x in zip(*fb))
+    if len(ri_f):
         out = {k: v.cpu().numpy() for k, v in pairs_ani(
             batch, ri_f, qi_f, cfg=cfg, budgets=budgets).items()}
         check_overflow(out, budgets)
         parts.append((ri_f, qi_f, out))
-    return _assemble(G, parts)
+    return assemble(G, parts)
 
 
 def sharded_triangle(batch: DeviceSketch, mesh: Mesh, *, cfg: ChainConfig,
@@ -276,43 +257,33 @@ def sharded_triangle(batch: DeviceSketch, mesh: Mesh, *, cfg: ChainConfig,
                      anchors_per_pair: Optional[int] = None):
     """All-vs-all ANI over a genome stack, its tiles spread over the mesh.
 
-    The strict upper triangle is tiled into ``block`` x ``block``
-    ``chain_block`` tiles (``block`` halved until it fits the pair-grid
-    limit; a tile's last rows and columns padded with its first genome;
-    diagonal tiles computed whole).  Tile ``t`` runs on rank
-    ``t % world``; the tile count is padded to a multiple of the world
-    with copies of tile 0, so every rank runs as many tiles.  The tiles
-    are all-gathered and assembled in triu order, then
-    ``check_overflow``.  Each rank holds the whole stack.  Returns
+    The strict upper triangle is tiled into ``engine.batch.square_tiles``
+    of ``max_tile(budgets, block)`` (diagonal tiles computed whole).
+    Tile ``t`` runs on rank ``t % world``; the tile count is padded to a
+    multiple of the world with copies of tile 0, so every rank runs as
+    many tiles.  The tiles are all-gathered and assembled in triu order,
+    then ``check_overflow``.  Each rank holds the whole stack.  Returns
     (ref_idx, query_idx, dict of [P] numpy arrays), as
     ``engine.batch.triangle`` does; giant genomes reroute as there."""
-    mask = _giant_mask(batch)
-    if mask.any():
+    giants = _giants(batch)
+    if giants:
         return _triangle_with_giants(
-            batch, mesh, mask, sharded_triangle, cfg=cfg, budgets=budgets,
+            batch, mesh, giants, sharded_triangle, cfg=cfg, budgets=budgets,
             block=block, anchors_per_pair=anchors_per_pair)
 
     G = batch.kmers.shape[0]
     world = mesh.size
-    while block > 1 and block * block * budgets.max_fragments > (1 << 17):
-        block //= 2
+    block = max_tile(budgets, block)
     app = anchors_per_pair or budgets.max_anchors
     # diagonal tiles also join their self-pairs (discarded on assembly),
     # and a self-pair's anchor count is the full seed count: two extra
     # per-pair shares per row of headroom
     total = round_up(block * (block + 2) * app, 8192)
 
-    starts = list(range(0, G, block))
-    tiles = []   # (ridx, qidx, rpad, qpad)
-    for a in starts:
-        for b in starts:
-            if b < a:
-                continue
-            ridx = np.arange(a, min(a + block, G))
-            qidx = np.arange(b, min(b + block, G))
-            rpad = np.concatenate([ridx, np.full(block - len(ridx), ridx[0])])
-            qpad = np.concatenate([qidx, np.full(block - len(qidx), qidx[0])])
-            tiles.append((ridx, qidx, rpad, qpad))
+    # (ridx, qidx, rpad, qpad) of every tile on or above the diagonal
+    idx = np.arange(G)
+    tiles = [t for a in range(0, G, block)
+             for t in square_tiles(idx[a:a + block], idx[a:], block)]
     T = len(tiles)
     Tp = -(-T // world) * world
     batch = replicate(mesh, batch)
@@ -333,7 +304,7 @@ def sharded_triangle(batch: DeviceSketch, mesh: Mesh, *, cfg: ChainConfig,
                 for k, v in ranks[t % world].items()}
         rr, qq = np.meshgrid(ridx, qidx, indexing="ij")
         parts.append((rr, qq, tile))
-    ri, qi, result = _assemble(G, parts)
+    ri, qi, result = assemble(G, parts)
     check_overflow(result, budgets)
     return ri, qi, result
 
@@ -355,16 +326,16 @@ def ring_triangle(batch: DeviceSketch, mesh: Mesh, *, cfg: ChainConfig,
     the JAX package does.  Returns (ref_idx, query_idx, dict of [P] numpy
     arrays) in triu order; giant genomes reroute as in
     :func:`sharded_triangle`."""
-    mask = _giant_mask(batch)
-    if mask.any():
+    giants = _giants(batch)
+    if giants:
         return _triangle_with_giants(
-            batch, mesh, mask, ring_triangle, cfg=cfg, budgets=budgets,
+            batch, mesh, giants, ring_triangle, cfg=cfg, budgets=budgets,
             anchors_per_pair=anchors_per_pair)
 
     G = batch.kmers.shape[0]
     D = mesh.size
     Bl = -(-G // D)
-    if Bl * Bl * budgets.max_fragments > (1 << 17):
+    if not grid_fits(Bl * Bl, budgets.max_fragments):
         raise ValueError(
             f"block of {Bl} genomes exceeds the pair-grid limit; use "
             f"more devices or smaller max_fragments")
@@ -400,7 +371,7 @@ def ring_triangle(batch: DeviceSketch, mesh: Mesh, *, cfg: ChainConfig,
             tile = {k: v[s][np.ix_(rk, qk)] for k, v in ranks[d_].items()}
             rr, qq = np.meshgrid(ridx[rk], qidx[qk], indexing="ij")
             parts.append((rr, qq, tile))
-    ri, qi, result = _assemble(G, parts)
+    ri, qi, result = assemble(G, parts)
     check_overflow(result, budgets)
     return ri, qi, result
 

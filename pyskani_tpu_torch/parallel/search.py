@@ -18,11 +18,13 @@ sketches only its own queries of a group.  The chunks run one after the
 other: the step syncs with the host (the passing pairs' count), so a
 queued next chunk would not overlap it.
 
-Two faults of the JAX searcher are not carried over: the aligned-fraction
-floor is ``CommandParams().min_aligned_frac``, as ``Database.query``
-takes it (the JAX searcher writes 0.15), and the ``frag_overflow`` plane
-is gathered and ``check_overflow`` raises on it (the JAX searcher drops
-it, so truncated fragments pass silently).
+Hits follow ``Database.query``'s rule (``hit.screened_hits``), and the
+searcher sizes its buckets and budgets with the Database's and the
+engine's rules.  Two faults of the JAX searcher are not carried over: the
+aligned-fraction floor is ``CommandParams().min_aligned_frac`` (the JAX
+searcher writes 0.15), and the ``frag_overflow`` plane is gathered and
+``check_overflow`` raises on it (the JAX searcher drops it, so truncated
+fragments pass silently).
 """
 
 from __future__ import annotations
@@ -31,17 +33,12 @@ import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
-from .. import regression
-from ..engine.batch import check_overflow, stack_sketches
+from ..engine.batch import check_overflow, engine_budgets, stack_sketches
 from ..engine.stream import stage_chunk
-from ..hit import Hit
-from ..ops.chain import EngineBudgets
-from ..ops.sketch import (contig_budget_for, marker_budget_for, round_up,
-                          seed_budget_for, sketch_genomes_device)
-from ..params import (MIN_ANI_KEEP, MIN_LENGTH_CONTIG, CommandParams,
-                      SEARCH_ANI_CUTOFF_DEFAULT)
+from ..hit import Hit, screened_hits
+from ..ops.sketch import sketch_genomes_device
+from ..params import MIN_LENGTH_CONTIG, SEARCH_ANI_CUTOFF_DEFAULT
 from .dist import _all_gather_object, make_sharded_search
 from .mesh import Mesh
 
@@ -72,11 +69,10 @@ class ShardedDatabaseSearch:
 
         self._db = database
         self._mesh = mesh
-        self._median = median
-        self._robust = robust
-        self._cutoff = cutoff
-        self._faster_small = faster_small
-        self._learned_arg = learned_ani
+        # Database.query's options: the hit rule's, and an oversized query's
+        self._opts = dict(learned_ani=learned_ani, median=median,
+                          robust=robust, cutoff=cutoff,
+                          faster_small=faster_small)
         ndb = mesh.shape["db"]
         self._ndb = ndb
         self._qpd = queries_per_device
@@ -91,13 +87,11 @@ class ShardedDatabaseSearch:
             stream_refs_per_device = 8
         self._streaming = stream_refs_per_device is not None
 
+        # the Database's buckets of the whole store: from the markers when
+        # streaming (no sketch is loaded here), else from the sketches
+        self._bucket, self._mbucket, self._cb = database._store_buckets(
+            names, streamed=self._streaming)
         if self._streaming:
-            # budgets from the markers' lengths: no sketch is loaded here
-            tl = max(m.total_len for m in markers)
-            self._bucket = seed_budget_for(tl, database._params.c)
-            self._mbucket = marker_budget_for(tl, database._params.marker_c)
-            self._cb = max(contig_budget_for(len(m.contig_lengths))
-                           for m in markers)
             # never a chunk larger than the store (a small store would pad
             # to db * stream_refs_per_device copies)
             rc = ndb * min(stream_refs_per_device,
@@ -107,17 +101,9 @@ class ShardedDatabaseSearch:
             self._rchunk = rc
             self._refs = None
         else:
-            # the budgets of Database._ref_stack, without its whole-store
-            # stack on the device: this rank stacks only its own rows
-            refs = [database._storage.load(n) for n in names]
-            counts = torch.stack([torch.stack([r.device.n_seeds,
-                                               r.device.n_markers,
-                                               r.device.n_contigs])
-                                  for r in refs]).cpu()
-            self._bucket = round_up(int(counts[:, 0].max()), 8192)
-            self._mbucket = round_up(int(counts[:, 1].max()), 512)
-            self._cb = max(contig_budget_for(int(c)) for c in counts[:, 2])
-            # one chunk of the whole store, its tail padded with row 0
+            # Database._ref_stack's buckets, without its whole-store stack
+            # on the device: this rank stacks only its own rows.  One chunk
+            # of the whole store, its tail padded with row 0
             self._rchunk = -(-self._R // ndb) * ndb
             self._ref_name_chunks = [names]
             mine = stack_sketches(
@@ -125,24 +111,17 @@ class ShardedDatabaseSearch:
                 self._bucket, self._mbucket, self._cb)
             self._refs = mine.map(lambda t: t.to(mesh.device))
 
-        fl = database._chain_cfg.fragment_length
-        self._fl = fl
+        fl = self._fl = database._chain_cfg.fragment_length
         # fragments are per contig (every contig gives at least one)
-        nf = round_up(max(sum(max(1, -(-L // fl)) for L in m.contig_lengths)
-                          for m in markers) + 2, 128)
-        self._nf = nf
-        self._budgets = EngineBudgets(
-            max_anchors=round_up(int(self._bucket * 1.5) + 4096, 8192),
-            max_fragments=nf, max_anchors_per_fragment=256)
-        screen_val = cutoff if cutoff is not None \
-            else SEARCH_ANI_CUTOFF_DEFAULT
-        self._learned = learned_ani if learned_ani is not None else \
-            regression.use_learned_ani(database._params.c, False, False,
-                                       median)
-        self._model = regression.get_model(database._params.c, self._learned)
+        self._budgets = engine_budgets(self._bucket, max(
+            sum(max(1, -(-L // fl)) for L in m.contig_lengths)
+            for m in markers))
+        # a query past the store-sized fragment budget takes Database.query
+        self._nf = self._budgets.max_fragments
         self._step = make_sharded_search(
             mesh, database._chain_cfg, self._budgets,
-            screen_val=screen_val,
+            screen_val=cutoff if cutoff is not None
+            else SEARCH_ANI_CUTOFF_DEFAULT,
             marker_k=database._params.marker_k,
             rescue_small=not faster_small, chunk=chunk)
 
@@ -201,10 +180,7 @@ class ShardedDatabaseSearch:
         mine = {}
         for i in fb_slots[mesh.rank::mesh.size]:
             nm, cs = all_items[i]
-            mine[i] = db.query(
-                nm, *cs, learned_ani=self._learned_arg,
-                median=self._median, robust=self._robust,
-                cutoff=self._cutoff, faster_small=self._faster_small)
+            mine[i] = db.query(nm, *cs, **self._opts)
         results_by_slot: dict = {}
         if fb_slots:
             for part in _all_gather_object(mesh, mine):
@@ -231,36 +207,25 @@ class ShardedDatabaseSearch:
                     planes[g][k].append(out[k][:len(names)].cpu().numpy())
         planes = [{k: np.concatenate(v) for k, v in p.items()} for p in planes]
 
-        key = "ani_median" if self._median else \
-            "ani_robust" if self._robust else "ani_mean"
-        maf = CommandParams().min_aligned_frac
         # a clipped anchor pool or anchors past the fragment budget in any
         # chunk: warn or raise as every other path does
         check_overflow({k: np.concatenate([p[k].reshape(-1) for p in planes])
                         for k in ("anchors_overflow", "frag_overflow")},
                        self._budgets)
-        # the learned correction: one batch per group over its screened
-        # pairs, on this rank's device
-        use_model = self._model is not None and not self._median \
-            and not self._robust
+        # the hit rule: one correction batch per group over its screened
+        # pairs (reference-major), on this rank's device
+        opts = self._opts
         out_hits: List[List[Hit]] = []
         for g, group in enumerate(groups):
             cols = slice(0, len(group))
-            sp = planes[g]["screen_pass"][:self._R, cols].astype(bool)
-            ani, afq, afr = (planes[g][k][:self._R, cols].astype(np.float64)
-                             for k in (key, "af_query", "af_ref"))
-            if use_model:
-                ri, qi = np.nonzero(sp)
-                ani[ri, qi] = regression.apply_model_batch(
-                    self._model, ani[ri, qi], afq[ri, qi], afr[ri, qi],
-                    self._mesh.device)
-            keep = sp & ~((afq < maf) & (afr < maf)) & (ani > MIN_ANI_KEEP)
-            for qi, (qname, _) in enumerate(group):
-                out_hits.append([
-                    Hit(min(max(float(ani[ri, qi]), 0.0), 1.0), qname,
-                        float(afq[ri, qi]), self._names[ri],
-                        float(afr[ri, qi]))
-                    for ri in np.nonzero(keep[:, qi])[0]])
+            ri, qi = np.nonzero(planes[g]["screen_pass"][:self._R, cols])
+            hits, kept, _ = screened_hits(
+                {k: v[:self._R, cols][ri, qi] for k, v in planes[g].items()},
+                [group[q][0] for q in qi], [self._names[r] for r in ri],
+                db._params.c, opts["learned_ani"], opts["median"],
+                opts["robust"], self._mesh.device)
+            out_hits += [[h for h, i in zip(hits, kept) if qi[i] == q]
+                         for q in range(len(group))]
         for slot, hits in zip(reg_slots, out_hits):
             results_by_slot[slot] = hits
         return [results_by_slot[i] for i in range(len(all_items))]

@@ -20,6 +20,7 @@ import pyskani_tpu_torch
 from conftest import mutate, random_genome
 from pyskani_tpu_torch import convert
 from pyskani_tpu_torch import database as tdb
+from pyskani_tpu_torch.ops.chain import packed_cap
 from pyskani_tpu_torch.ops.screen import screen_batch
 
 torch.set_num_threads(1)
@@ -242,7 +243,7 @@ def test_giant_contig_fallback_matches_jax():
     draft = _split(mutate(rng, base, 0.04), 600) + \
         [random_genome(rng, 1000) for _ in range(3500)]
     q = mutate(rng, base, 0.01)
-    assert len(base) >= 1 << (32 - tdb.rcid_bits_for(8192))
+    assert len(base) >= packed_cap(8192)
 
     control = pyskani_tpu_torch.Database(device="cpu")
     control.sketch("giant", base)
@@ -275,7 +276,7 @@ def test_block_chunk_padding_skips_rerouted_store_head():
                [random_genome(rng, 150) for _ in range(3500)])
               for i in range(3)]
     q = mutate(rng, base, 0.01)
-    assert len(base) >= 1 << (32 - tdb.rcid_bits_for(8192))
+    assert len(base) >= packed_cap(8192)
 
     control = pyskani_tpu_torch.Database(device="cpu")
     control.sketch("giant", base)

@@ -329,14 +329,14 @@ def test_frag_overflow_raises_where_jax_is_silent(stores):
 
 def test_aligned_fraction_floor_is_command_params(stores, monkeypatch):
     """The port's searcher takes the aligned-fraction floor from
-    CommandParams, as Database.query does (the JAX searcher writes 0.15,
+    CommandParams through the hit rule that Database.query also calls
+    (``hit.screened_hits``; the JAX searcher writes 0.15,
     which is also CommandParams' default).  With the floor raised past
     some hits' fractions, those hits drop out of both, and the two agree
     hit for hit."""
     import functools
 
-    from pyskani_tpu_torch import database, params
-    from pyskani_tpu_torch.parallel import search
+    from pyskani_tpu_torch import hit, params
 
     path, queries = stores["streamed"]
     db = Database.load(path, device="cpu")
@@ -348,8 +348,7 @@ def test_aligned_fraction_floor_is_command_params(stores, monkeypatch):
     assert fracs[0] >= params.CommandParams().min_aligned_frac
     raised = functools.partial(params.CommandParams,
                                min_aligned_frac=floor)
-    monkeypatch.setattr(search, "CommandParams", raised)
-    monkeypatch.setattr(database, "CommandParams", raised)
+    monkeypatch.setattr(hit, "CommandParams", raised)
     got = _hits(s.query_many(queries))
     want = [[h for h in hs if max(h[2], h[3]) >= floor] for hs in before]
     assert 0 < sum(map(len, got)) < sum(map(len, before))

@@ -135,9 +135,17 @@ Phases (any failure exits non-zero and prints no result line):
              table cut at 7 slots and with ``est_side="chunk"``: every
              output bit-equal; timed on the family triangle's group and
              cross-tile inputs beside its bound by bytes and the plain
+             version.  The per-pair tail kernel (the same source): the
+             first input of each phase, path and shape the packed paths
+             fed it, through the kernel and ``chain_tail_plain`` as
+             recorded, with ``est_side="chunk"`` and with ``est_ci``:
+             counts, flags and aligned fractions bit-equal, the ANI
+             estimators (and the bootstrap bounds) within 1e-6; timed on
+             the search's first input and the family triangle's group and
+             cross-tile inputs beside its bound by bytes and the plain
              version.
 
-Both kernels' launch counts are reset just before the main-path
+The three kernels' launch counts are reset just before the main-path
 calls of each phase (the search's queries, the fallback's queries, the
 giant query, each of the three triangles, each timed run of the disk
 phase, the k = 21 queries, streamed queries and CLI, each part of the
@@ -146,9 +154,12 @@ per-pair path for every fallback query, and the family triangle exactly
 3 times.  The kernels line counts every rank's launches, and the
 fragment-budget part's 3 (printed apart on the launches line); the
 post-DP kernel's entry counts its launches in the same windows, every
-rank's.  The post-DP kernel must launch once per packed chain call on
-the card (``chain_block``, ``chain_triangle``) and never on
-``chain_pairs``, in every phase and every rank.  Every chain call of
+rank's, and so does the tail kernel's.  The post-DP kernel must launch
+once per packed chain call on the card (``chain_block``,
+``chain_triangle``) and never on ``chain_pairs``, and the tail kernel
+once per such call whose shape fits its shared memory (``tail_fits``;
+the others take the plain version on the card), in every phase and
+every rank.  Every chain call of
 every phase, in every rank, must return ``frag_overflow`` and, outside
 that part, set it on no pair.
 
@@ -413,14 +424,15 @@ def phase_search(result, torch, dev, args, rec):
 
 class Recorder:
     """Keeps every grid the pipelines feed the chain-DP kernel and the
-    first input of each shape they feed the post-DP kernel, and counts
-    both kernels' launches per phase and path.
+    first input of each shape they feed the post-DP and tail kernels, and
+    counts the three kernels' launches per phase and path.
 
     It wraps ``chain_dp`` as ``ops/chain.py`` calls it (a clone of each
     CUDA grid while ``keep`` is set; in a phase of ``distinct``, only the
     first grid of each path and shape), ``chain_post`` likewise (a clone
     of the first CUDA input of each phase, path and shape while ``keep``
-    is set) and ``chain_block`` / ``chain_pairs`` / ``chain_triangle`` as
+    is set), ``chain_tail`` likewise (and the calls on the card whose
+    shape fits the kernel) and ``chain_block`` / ``chain_pairs`` / ``chain_triangle`` as
     ``engine/batch.py``, ``engine/stream.py`` and ``parallel/dist.py``
     call them (the wrappers' own launch counts before and after each
     call, the packed calls on the card, and each output's
@@ -437,16 +449,22 @@ class Recorder:
         from pyskani_tpu_torch.parallel import dist as dist_mod
         self.grids = []          # (phase, path, (qpos, rpos, meta))
         self.posts = []          # (phase, path, inputs, cfg, keywords)
+        self.tails = []          # (phase, path, inputs, cfg, NF, CE)
         self.launches = {}       # (phase, path) -> launches
         self.post_launches = {}  # (phase, path) -> post-DP launches
+        self.tail_launches = {}  # (phase, path) -> tail launches
+        self.tail_fits = {}      # (phase, path) -> [tail calls on the card
+                                 #   that fit the kernel, that do not]
         self.packed_calls = {}   # (phase, path) -> calls with pairs
         self.flags = []          # (phase, frag_overflow or None) per call
-        self.main = [0, 0]       # chain-DP, post-DP launches of the windows
+        self.main = [0, 0, 0]    # chain-DP, post-DP, tail launches of the
+                                 # windows
         self.phase = None
         self.keep = True
         self.distinct = set()    # phases that keep one grid per shape
         self._seen = set()
         self._post_seen = set()
+        self._tail_seen = set()
         self._path = [None]
         self._mods = (batch_mod, chain_mod, dp_mod, post_mod)
         self._wrapped = [(batch_mod, n) for n in self.PATHS] + \
@@ -458,6 +476,7 @@ class Recorder:
         _, chain_mod, dp_mod, post_mod = self._mods
         real_dp = self._real["chain_dp"] = chain_mod.chain_dp
         real_post = self._real["chain_post"] = chain_mod.chain_post
+        real_tail = self._real["chain_tail"] = chain_mod.chain_tail
 
         def record_dp(q, r, m, cfg):
             key = (self.phase, self._path[-1], tuple(q.shape))
@@ -476,8 +495,24 @@ class Recorder:
                                    [t.clone() for t in a[:7]], a[7], kw))
             return real_post(*a, **kw)
 
+        def record_tail(st, tail_r, tail_q, q, r, cfg, *, NF, CE):
+            path = self._path[-1]
+            if tail_r.is_cuda and tail_r.numel():
+                fit = self.tail_fits.setdefault((self.phase, path), [0, 0])
+                fit[0 if post_mod.tail_fits(NF, CE, cfg.est_side) else 1] += 1
+            key = (self.phase, path, tail_r.shape[0], NF, CE, cfg.est_side)
+            if self.keep and tail_r.is_cuda and key not in self._tail_seen:
+                self._tail_seen.add(key)
+                keep = lambda t: None if t is None else t.clone()
+                self.tails.append((self.phase, path, (
+                    {k: v.clone() for k, v in st.items()}, tail_r.clone(),
+                    tail_q.clone(), post_mod.GenomeTables(*map(keep, q)),
+                    post_mod.GenomeTables(*map(keep, r))), cfg, NF, CE))
+            return real_tail(st, tail_r, tail_q, q, r, cfg, NF=NF, CE=CE)
+
         chain_mod.chain_dp = record_dp
         chain_mod.chain_post = record_post
+        chain_mod.chain_tail = record_tail
         for mod, name in self._wrapped:
             fn = self._real[(mod, name)] = getattr(mod, name)
             setattr(mod, name, self._counted(name, fn, dp_mod, post_mod))
@@ -487,6 +522,7 @@ class Recorder:
         def call(*a, **kw):
             before = dp_mod.chain_dp.launches
             before_post = post_mod.chain_post.launches
+            before_tail = post_mod.chain_tail.launches
             self._path.append(name)
             try:
                 out = fn(*a, **kw)
@@ -497,6 +533,8 @@ class Recorder:
                     dp_mod.chain_dp.launches - before
                 self.post_launches[key] = self.post_launches.get(key, 0) + \
                     post_mod.chain_post.launches - before_post
+                self.tail_launches[key] = self.tail_launches.get(key, 0) + \
+                    post_mod.chain_tail.launches - before_tail
             nc = out.get("n_chains")
             packed = nc is not None and nc.is_cuda and nc.numel() > 0
             self.packed_calls[key] = self.packed_calls.get(key, 0) + packed
@@ -505,38 +543,50 @@ class Recorder:
         return call
 
     def start(self):
-        """Opens a counted window of the main path: zeroes both kernels'
-        launch counters."""
+        """Opens a counted window of the main path: zeroes the three
+        kernels' launch counters."""
         dp_mod, post_mod = self._mods[2:]
-        dp_mod.chain_dp.launches = post_mod.chain_post.launches = 0
+        dp_mod.chain_dp.launches = post_mod.chain_post.launches = \
+            post_mod.chain_tail.launches = 0
 
     def stop(self, main=True) -> int:
-        """Closes a counted window: adds both kernels' launches in it to
-        ``main`` (if it is a main-path window) and returns the chain-DP
+        """Closes a counted window: adds the three kernels' launches in it
+        to ``main`` (if it is a main-path window) and returns the chain-DP
         kernel's."""
         dp_mod, post_mod = self._mods[2:]
         if main:
             self.main[0] += dp_mod.chain_dp.launches
             self.main[1] += post_mod.chain_post.launches
+            self.main[2] += post_mod.chain_tail.launches
         return dp_mod.chain_dp.launches
 
     def add_ranks(self, ranks):
         """Adds the spawned ranks' main-path launches to ``main``."""
         self.main[0] += sum(r["launches"] for r in ranks)
         self.main[1] += sum(r["post_launches"] for r in ranks)
+        self.main[2] += sum(r["tail_launches"] for r in ranks)
 
     def post_report(self) -> dict:
         """{phase/path: [packed calls with pairs on the card, post-DP
-        launches]} over every recorded call; raises unless the two are
-        equal everywhere (so ``chain_pairs`` launches none)."""
-        keys = sorted(set(self.packed_calls) | set(self.post_launches),
-                      key=str)
-        report = {f"{ph}/{pa}": [self.packed_calls.get((ph, pa), 0),
-                                 self.post_launches.get((ph, pa), 0)]
-                  for ph, pa in keys}
-        if any(v[0] != v[1] for v in report.values()):
-            raise AssertionError(f"post-DP kernel per phase/path [packed "
-                                 f"calls, launches]: {report}")
+        launches, tail launches, tail calls past ``tail_fits``]} over
+        every recorded call; raises unless the post-DP kernel launched
+        once per packed call (so ``chain_pairs`` launches none) and the
+        tail kernel once per packed call that fits it."""
+        keys = sorted(set(self.packed_calls) | set(self.post_launches) |
+                      set(self.tail_launches) | set(self.tail_fits), key=str)
+        report = {}
+        for ph, pa in keys:
+            fit, past = self.tail_fits.get((ph, pa), [0, 0])
+            v = [self.packed_calls.get((ph, pa), 0),
+                 self.post_launches.get((ph, pa), 0),
+                 self.tail_launches.get((ph, pa), 0), past]
+            report[f"{ph}/{pa}"] = v
+            if v[0] != v[1] or v[2] != fit or fit + past != v[0]:
+                raise AssertionError(
+                    f"post-DP and tail kernels per phase/path [packed calls, "
+                    f"post-DP launches, tail launches, tail calls past "
+                    f"tail_fits]: {ph}/{pa} {v} (tail calls that fit "
+                    f"{fit})")
         return report
 
     def flag_report(self) -> dict:
@@ -556,6 +606,7 @@ class Recorder:
         chain_mod = self._mods[1]
         chain_mod.chain_dp = self._real["chain_dp"]
         chain_mod.chain_post = self._real["chain_post"]
+        chain_mod.chain_tail = self._real["chain_tail"]
         for mod, name in self._wrapped:
             setattr(mod, name, self._real[(mod, name)])
         return False
@@ -1805,9 +1856,10 @@ def mesh_rank(store, queries, fam, shapes, ring):
     (with ``ring``) ``ring_triangle`` of the family's sketches.  The
     first DP grid of each path and shape is kept and, after the run, held
     bit-equal to ``chain_dp_plain``, and the post-DP kernel must have
-    run once per packed call on the card.  Returns the results, the
-    devices the rank's sketches lay on, both kernels' launches and the
-    grids it checked."""
+    run once per packed call on the card, the tail kernel once per such
+    call that fits it.  Returns the results, the devices the rank's
+    sketches lay on, the three kernels' launches and the grids it
+    checked."""
     import torch
 
     from pyskani_tpu_torch.ops.chain import ChainConfig
@@ -1820,6 +1872,7 @@ def mesh_rank(store, queries, fam, shapes, ring):
         _mesh_rank_run(out, store, queries, fam, shapes, ring)
         out["launches"] = rec.stop()
     out["post_launches"] = rec.main[1]
+    out["tail_launches"] = rec.main[2]
     out["post_report"] = rec.post_report()
     out["grids"] = _hold_plain(torch, rec.grids, ChainConfig())
     out["flags"] = rec.flag_report()
@@ -2045,6 +2098,7 @@ def phase_mesh(result, torch, dev, card, rec, db, queries, family):
         rep["b"] = dict(wall_s=wall_b, rank_wall_s=[r["wall_s"] for r in ranks],
                         launches=[r["launches"] for r in ranks],
                         post_launches=[r["post_launches"] for r in ranks],
+                        tail_launches=[r["tail_launches"] for r in ranks],
                         chunks={f"{k[0]}x{k[1]}": v
                                 for k, v in ranks[0]["chunks"].items()},
                         max_diff=diffs, grids=[r["grids"] for r in ranks])
@@ -2055,7 +2109,8 @@ def phase_mesh(result, torch, dev, card, rec, db, queries, family):
             f"(rank 0: {ranks[0]['grids']}); wall "
             f"{wall_b:.2f} s (ranks {[round(r['wall_s'], 2) for r in ranks]} "
             f"s after start-up), chain-DP launches {rep['b']['launches']}, "
-            f"post-DP {rep['b']['post_launches']} ({card})")
+            f"post-DP {rep['b']['post_launches']}, tail "
+            f"{rep['b']['tail_launches']} ({card})")
 
         # ---- (c) one card per rank over NCCL ----
         n = torch.cuda.device_count()
@@ -2662,27 +2717,133 @@ def _time_post(torch, dev, post, label, n_plain=3):
                 **t, bytes=nbytes, bound_ms=bound_ms, bound_by="bytes")
 
 
-def check_post_launches(result, rec, launches) -> int:
+def _tail_bytes(args, cfg, NF, CE):
+    """(the tail kernel's bytes, covered fragments) for one call, as
+    ``csrc/chain_post.cu`` counts them: per pair the stage's rows (24 B a
+    row: ``numer``, ``span_lo``, ``span_hi``), 8 B a reference numerator
+    with ``est_side`` "both", 49 B a kept end (six int64 planes and
+    ``end_valid``), 21 B of per-pair inputs (``n_chains``, ``ref_over``,
+    ``tail_r``, ``tail_q``) and 25 B of outputs; per covered fragment of
+    either side two binary searches into its genome's S sorted seed
+    positions, ceil(log2(S + 1)) dependent 8-byte reads each, and two
+    8-byte reads of the running count."""
+    st, tail_r, tail_q, q, r = args
+    P = tail_r.shape[0]
+    both = cfg.est_side == "both"
+    thr = max(1, int(cfg.min_frag_anchors))
+    ends = int(st["n_chains"].clamp(0, CE).sum())
+    nbytes = P * NF * (24 + 8 * both) + ends * 49 + P * (21 + 25)
+    covered = 0
+    for numer, side in ((st["numer"], q),) + \
+            (((st["numer_r"], r),) if both else ()):
+        n = int((numer >= thr).sum())
+        covered += n
+        probes = int(np.ceil(np.log2(side.pos.shape[1] + 1)))
+        nbytes += n * 2 * (probes + 1) * 8
+    return nbytes, covered
+
+
+def _check_tail(torch, rec):
+    """The tail kernel against ``chain_tail_plain`` on every recorded
+    input, as recorded, with ``est_side="chunk"`` and with ``est_ci``:
+    counts, flags and aligned fractions bit-equal, the ANI estimators and
+    bootstrap bounds within 1e-6.  Returns the inputs checked per
+    phase/path and the largest |kernel - plain| of the estimators."""
+    from pyskani_tpu_torch.ops.chain_post import chain_tail, chain_tail_plain
+    counts = {}
+    worst = 0.0
+    exact = ("n_fragments", "n_chains", "frag_overflow", "af_query",
+             "af_ref")
+    for phase, path, args, cfg, NF, CE in rec.tails:
+        label = f"{phase}/{path}"
+        variants = [cfg]
+        if cfg.est_side == "both":
+            variants.append(dataclasses.replace(cfg, est_side="chunk"))
+        if not cfg.est_ci:
+            variants.append(dataclasses.replace(cfg, est_ci=True))
+        for c in variants:
+            before = chain_tail.launches
+            got = chain_tail(*args, c, NF=NF, CE=CE)
+            want = chain_tail_plain(*args, c, NF=NF, CE=CE)
+            where = (f"a {label} input (P {args[1].shape[0]}, NF {NF}, CE "
+                     f"{CE}, est_side {c.est_side}, est_ci {c.est_ci})")
+            if chain_tail.launches != before + 1 or list(got) != list(want):
+                raise AssertionError(f"chain_tail did not launch its kernel "
+                                     f"once on {where}: keys {list(got)}")
+            for k in exact:
+                if not torch.equal(got[k], want[k]):
+                    raise AssertionError(f"chain_tail kernel != plain in {k} "
+                                         f"on {where}")
+            for k in set(got) - set(exact):
+                d = float((got[k].double() - want[k].double()).abs().max())
+                worst = max(worst, d)
+                if not d <= 1e-6:
+                    raise AssertionError(f"chain_tail kernel - plain in {k} "
+                                         f"is {d} on {where}")
+        counts[label] = counts.get(label, 0) + 1
+    for need in ("search/chain_block", "triangle/chain_triangle",
+                 "triangle/chain_block"):
+        if not counts.get(need):
+            raise AssertionError(f"no {need} tail input was recorded: "
+                                 f"{counts}")
+    log(f"[kernels] chain_tail against its plain version on "
+        f"{len(rec.tails)} recorded inputs (as recorded, est_side chunk, "
+        f"est_ci): counts, flags and aligned fractions bit-equal, max "
+        f"|diff| of the estimators {worst}: {counts}")
+    return counts, worst
+
+
+def _time_tail(torch, dev, tail, label, n_plain=3):
+    """Device ms of the tail kernel on a recorded input (warm: 50
+    launches back to back; cold: L2 flushed before each of 20), the
+    wrapper's host ms per call, the plain version's ms (median of
+    ``n_plain``) and the card's bound by bytes (:func:`_tail_bytes`)."""
+    from pyskani_tpu_torch.ops.chain_post import chain_tail, chain_tail_plain
+
+    _, _, args, cfg, NF, CE = tail
+    P = args[1].shape[0]
+    t = _time_wrapper(torch, dev,
+                      lambda: chain_tail(*args, cfg, NF=NF, CE=CE),
+                      lambda: chain_tail_plain(*args, cfg, NF=NF, CE=CE),
+                      50, 20, n_plain)
+    nbytes, covered = _tail_bytes(args, cfg, NF, CE)
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    log(f"[kernels] chain_tail {label} P {P}, NF {NF}, CE {CE} ({covered} "
+        f"covered fragments): device {t['warm_ms']:.5f} ms warm (50 "
+        f"back-to-back launches), {t['cold_ms']:.5f} ms with L2 flushed "
+        f"(median of 20); wrapper host time {t['host_ms_per_call']:.4f} ms "
+        f"per call; plain {t['plain_median_ms']:.2f} ms; bound "
+        f"{bound_ms:.5f} ms by bytes ({nbytes / 1e6:.2f} MB): warm time "
+        f"{t['warm_ms'] / bound_ms:.2f}x the bound")
+    return dict(P=P, NF=NF, CE=CE, covered_fragments=covered, **t,
+                bytes=nbytes, bound_ms=bound_ms, bound_by="bytes")
+
+
+def check_post_launches(result, rec, launches):
     """The post-DP kernel ran once per packed chain call with pairs on
     the card (``chain_block``, ``chain_triangle``; the CPU port's calls
-    take the plain version) and never on ``chain_pairs``, in every phase
-    of this process; the counted windows are those that make up the
-    chain-DP kernel's ``launches``.  Returns the post-DP kernel's
+    take the plain version) and never on ``chain_pairs``, and the tail
+    kernel once per such call that fits it, in every phase of this
+    process; the counted windows are those that make up the chain-DP
+    kernel's ``launches``.  Returns the post-DP and the tail kernels'
     launches in those windows, every rank's."""
     report = rec.post_report()
-    if rec.main[0] != launches or not rec.main[1]:
+    if rec.main[0] != launches or not rec.main[1] or not rec.main[2]:
         raise AssertionError(f"counted windows: chain-DP {rec.main[0]} "
                              f"launches (the phases count {launches}), "
-                             f"post-DP {rec.main[1]}")
-    log(f"[launches] post-DP kernel on the main paths, every rank: "
-        f"{rec.main[1]}; one per packed chain call on the card (none on "
-        f"chain_pairs) in every phase of this process [packed calls, "
-        f"launches]: {report}")
+                             f"post-DP {rec.main[1]}, tail {rec.main[2]}")
+    log(f"[launches] on the main paths, every rank: post-DP kernel "
+        f"{rec.main[1]}, tail kernel {rec.main[2]}; post-DP once per packed "
+        f"chain call on the card (none on chain_pairs), tail once per such "
+        f"call that fits it, in every phase of this process [packed calls, "
+        f"post-DP launches, tail launches, tail calls past tail_fits]: "
+        f"{report}")
     result["post_launch_report"] = report
-    return rec.main[1]
+    return rec.main[1], rec.main[2]
 
 
-def phase_kernels(result, torch, dev, rec, launches, post_launches):
+def phase_kernels(result, torch, dev, rec, launches, post_launches,
+                  tail_launches):
     from pyskani_tpu_torch.ops.chain import ChainConfig
     from pyskani_tpu_torch.ops.chain_dp import chain_dp, chain_dp_plain
 
@@ -2777,7 +2938,23 @@ def phase_kernels(result, torch, dev, rec, launches, post_launches):
                       plain_ms=post_group["plain_median_ms"],
                       bound_ms=post_group["bound_ms"], bound_by="bytes",
                       library_ms=None)
-    result["kernels"] = [entry, post_entry]
+    tail_counts, tail_worst = _check_tail(torch, rec)
+    tail_in = {lab: next(t for t in rec.tails if t[:2] == key)
+               for lab, key in (("search", ("search", "chain_block")),
+                                ("group", ("triangle", "chain_triangle")),
+                                ("cross", ("triangle", "chain_block")))}
+    tail_search = _time_tail(torch, dev, tail_in["search"], "search")
+    tail_group = _time_tail(torch, dev, tail_in["group"], "triangle group")
+    tail_cross = _time_tail(torch, dev, tail_in["cross"],
+                            "triangle cross tile", n_plain=1)
+    tail_entry = dict(name="chain_tail", route="cuda",
+                      source="pyskani_tpu_torch/csrc/chain_post.cu",
+                      replaces=None, launches=tail_launches,
+                      max_abs_err=tail_worst, ms=tail_search["warm_ms"],
+                      plain_ms=tail_search["plain_median_ms"],
+                      bound_ms=tail_search["bound_ms"], bound_by="bytes",
+                      library_ms=None)
+    result["kernels"] = [entry, post_entry, tail_entry]
     result["kernel_detail"] = dict(
         search=search, fallback=fallback, giant=giant,
         triangle_group=tri_group, triangle_cross=tri_cross, k21_search=k21,
@@ -2785,7 +2962,9 @@ def phase_kernels(result, torch, dev, rec, launches, post_launches):
         registers=regs, grids_checked=len(cases), recorded=counts,
         plain_s=plain_s, post_recorded=post_counts,
         post_triangle_group=post_group, post_triangle_cross=post_cross,
-        post_registers=post_regs)
+        post_registers=post_regs, tail_recorded=tail_counts,
+        tail_search=tail_search, tail_triangle_group=tail_group,
+        tail_triangle_cross=tail_cross)
     return result["kernels"]
 
 
@@ -2867,8 +3046,9 @@ def main() -> int:
         f"triangle {tri_launches}, disk {disk_launches}, generic_k "
         f"{gk_launches}, mesh {mesh_launches}: {main_launches}; with the "
         f"fragment-budget part's {frag_launches}: {launches}")
-    post_launches = check_post_launches(result, rec, launches)
-    entries = phase_kernels(result, torch, dev, rec, launches, post_launches)
+    post_launches, tail_launches = check_post_launches(result, rec, launches)
+    entries = phase_kernels(result, torch, dev, rec, launches, post_launches,
+                            tail_launches)
     result["total_s"] = time.perf_counter() - t_start
     log(f"[done] {result['total_s']:.1f} s")
     if args.out:

@@ -1,6 +1,8 @@
-// Per-chain stage of the packed post-DP over a [P*NF, PF] anchor grid.
+// The packed post-DP on the card: the per-chain stage over a [P*NF, PF]
+// anchor grid (chain_post_kernel), then the per-pair tail over its outputs
+// (chain_tail_kernel, after the first kernel's launcher below).
 //
-// Replaces no TPU kernel: the JAX package computes this stage with XLA
+// Per-chain stage.  Replaces no TPU kernel: the JAX package computes this stage with XLA
 // ops (a per-row sort by chain root and segmented scans).  Its plain
 // PyTorch version is pyskani_tpu_torch/ops/chain_post.py::chain_post_plain
 // (scatter-reduces into [R, PF] bins keyed by root, a cumsum and nonzero
@@ -63,6 +65,11 @@ constexpr int kMaxPF = 8192;           // ops/chain_post.py's MAX_PF
 constexpr int kMaxWarps = 8;
 constexpr int kBinBytes = 24;           // per root: six 32-bit words
 constexpr int kBinBudget = 48 * 1024;   // bins per block W aims at
+// a launch's dynamic and static shared memory together must fit the
+// default 48 KB unless the kernel's attribute is raised first; both
+// kernels' static shared memory stays under kStaticRoom
+constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr size_t kStaticRoom = 1024;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr long long kPosBig = 1LL << 30;
 constexpr long long kNegBig = -(1LL << 30);
@@ -343,7 +350,7 @@ chain_post_kernel(const Params p) {
 
 template <bool kVec>
 int launch(const Params& p, int P, int W, size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
+  if (smem + kStaticRoom > kDefaultSmem) {
     const cudaError_t e = cudaFuncSetAttribute(
         chain_post_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
@@ -382,7 +389,7 @@ extern "C" int chain_post_launch(
   const size_t bins = (size_t)W * kBinBytes * PF;
   const size_t with_hist = bins + (size_t)NF * sizeof(int);
   // room for the kernel's static shared memory
-  const size_t room = optin > 1024 ? (size_t)optin - 1024 : 0;
+  const size_t room = optin > (int)kStaticRoom ? optin - kStaticRoom : 0;
   const bool hist_shared = with_hist <= room;
   const size_t smem = hist_shared ? with_hist : bins;
   if (smem > room) return (int)cudaErrorInvalidValue;
@@ -397,4 +404,464 @@ extern "C" int chain_post_launch(
   cudaStream_t s = (cudaStream_t)stream;
   return vec ? launch<true>(p, P, W, smem, s)
              : launch<false>(p, P, W, smem, s);
+}
+
+// ---------------------------------------------------------------------------
+// Per-pair tail of the packed post-DP.
+//
+// Replaces no TPU kernel: the JAX package computes it with XLA ops.  Its
+// plain PyTorch version is ops/chain_post.py::chain_tail_plain (about 400
+// small ops a call: searchsorted over [P, S] gathered seed tables, the
+// reference spans' scatter-reduces, a sort and quantiles, two sorts and
+// cummaxes for the unions).  Counts, flags and the aligned fractions are
+// bit-equal to it; the quantiles, the median and the fragment ANIs use
+// the same f32 operations (the build turns off fused multiply-add); the
+// mean and the trimmed mean sum in double here and in f32 there, so they
+// agree within a few ulp.
+//
+// Per pair p, with genome rows gq = tail_q[p], gr = tail_r[p]:
+//   * query fragment f is covered when numer >= max(1, min_frag_anchors);
+//     its span [lo, hi] is the kept chains' span clipped to the fragment,
+//     and its denominator the eligible seeds of the query genome in it,
+//     those before lower_bound(pos, hi + 1) less those before
+//     lower_bound(pos, lo) over the genome's sorted global seed positions,
+//     from its running count of eligible seeds, both read in place;
+//   * fragment ANI = min(numer / max(denom, 1), 1) ^ (1/k), +inf when not
+//     covered;
+//   * with est_side "both": each kept end's reference interval, cut into
+//     4 pieces at reference fragment boundaries, reduced by min / max into
+//     [NF] bins (a piece at a fragment >= NF sets frag_overflow), then the
+//     reference denominators and ANIs over numer_r;
+//   * the M = NF or 2 NF values sorted: mean, the 10% and 90%
+//     linear-interpolated quantiles, the trimmed mean inside them, the
+//     median; with est_ci the sorted row is written for the bootstrap;
+//   * the union lengths of the kept ends' query and reference intervals
+//     (sorted by start, running max of the ends), over the genome lengths.
+//
+// Bound: bytes.  Per pair it reads the stage's outputs (24 B a row, 8 B a
+// reference numerator, 49 B a kept end, 21 B of per-pair inputs) and
+// writes 25 B; per covered fragment of either side it makes two binary
+// searches into the genome's S sorted seed positions (ceil(log2(S + 1))
+// dependent 8-byte reads each, from L2 once the pair's genomes are warm)
+// and two 8-byte reads of the running count (chip_smoke.py's _tail_bytes
+// counts the same).  That is well under a microsecond a call at 3.35 TB/s;
+// the kernel is bound by its dependent reads and its block's sorts rather
+// than bytes.  PERF.md keeps the numbers.
+//
+// Design: ONE BLOCK PER PAIR, threads over fragments and ends.  The M
+// values, the reference spans and the intervals live in shared memory
+// (the spans and the intervals share one buffer, used one after the
+// other); the sorts are bitonic over the next power of two, the union's
+// running max a chunked block scan.  A call is one launch, whatever P:
+// 16 blocks in a search call, up to ~340 in a triangle call, all
+// resident at once on the card's 132 SMs.
+
+namespace {
+
+constexpr int kTailMaxThreads = 256;
+constexpr int kRefSpanPieces = 4;   // ops/chain.py's _REF_SPAN_PIECES
+
+struct Side {   // one side's per-genome tables, row g = genome g
+  const long long* starts;      // [G, C+1] contig starts
+  const long long* frag_offs;   // [G, C+1]
+  const int* clens;             // [G, C]
+  const long long* pos;         // [G, S] sorted global seed positions
+  const long long* pref;        // [G, S] eligible seeds up to and
+                                // including each
+                                // (pos and pref: the reference side's
+                                //  only with est_side "both")
+  const long long* total;       // [G]
+  int C, S;
+};
+
+struct TailParams {
+  const long long* numer;       // [P*NF]
+  const long long* span_lo;
+  const long long* span_hi;
+  const int* n_chains;          // [P]
+  const long long* row_sel;     // [P, CE]
+  const unsigned char* end_valid;
+  const long long* end_qmn;
+  const long long* end_qmx;
+  const long long* end_rmn;
+  const long long* end_rmx;
+  const long long* end_rcid;
+  const long long* numer_r;     // [P, NF]
+  const unsigned char* ref_over;  // [P]
+  const long long* tail_r;
+  const long long* tail_q;
+  Side q, r;
+  int NF, CE, both, Mp, cap;
+  long long min_cov, fl, ext_l, ext_r;
+  float inv_k;
+  float* ani_mean;
+  float* ani_robust;
+  float* ani_median;
+  int* n_fragments;
+  float* af_query;
+  float* af_ref;
+  unsigned char* frag_overflow;
+  float* ranked;                // [P, M] or null
+};
+
+// first i in [0, n) with a[i] >= v, else n (torch.searchsorted, left)
+__device__ __forceinline__ long long lower_bound(const long long* a, int n,
+                                                 long long v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(a + mid) < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// contig of fragment f: the last whose fragment offset is at or before f,
+// clipped to [0, C-1] (ops/chain.py::_frag_contig)
+__device__ __forceinline__ long long frag_contig(const long long* fo, int C,
+                                                 long long f) {
+  int lo = 0, hi = C + 1;   // first offset past f
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(fo + mid) <= f) lo = mid + 1; else hi = mid;
+  }
+  return min(max((long long)lo - 1, 0LL), (long long)C - 1);
+}
+
+// eligible seeds of genome g in the global span [lo, hi]: those before
+// lower_bound(hi + 1) less those before lower_bound(lo)
+__device__ __forceinline__ long long span_denom(const Side& s, long long g,
+                                                long long lo, long long hi) {
+  const long long* pos = s.pos + g * s.S;
+  const long long* pref = s.pref + g * s.S;
+  const long long a = lower_bound(pos, s.S, lo);
+  const long long b = lower_bound(pos, s.S, hi + 1);
+  return (b > 0 ? __ldg(pref + b - 1) : 0) - (a > 0 ? __ldg(pref + a - 1) : 0);
+}
+
+// ops/chain.py::_frag_ani for a covered fragment, in its f32 operations
+__device__ __forceinline__ float frag_ani(long long numer, long long denom,
+                                          float inv_k) {
+  const float d = fmaxf((float)denom, 1.0f);
+  return powf(fminf(__fdiv_rn((float)numer, d), 1.0f), inv_k);
+}
+
+// ops/chain.py::_interp_quantile of the first n of the sorted s[0, M)
+__device__ __forceinline__ float interp_quantile(const float* s, int n, int M,
+                                                 float q) {
+  const float pos = __fmul_rn(q, __fsub_rn((float)n, 1.0f));
+  const long long lo = (long long)floorf(pos);
+  const long long hi = min(lo + 1, (long long)n - 1);
+  const float w = __fsub_rn(pos, (float)lo);
+  const float v_lo = s[min(max(lo, 0LL), (long long)M - 1)];
+  const float v_hi = s[min(max(hi, 0LL), (long long)M - 1)];
+  return __fadd_rn(__fmul_rn(v_lo, __fsub_rn(1.0f, w)), __fmul_rn(v_hi, w));
+}
+
+// sum over the block, the same in every thread and in a fixed order;
+// scratch: 32 entries of shared memory
+template <typename T>
+__device__ T block_sum(T v, T* scratch) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(kFull, v, d);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  T t = 0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t += scratch[w];
+  return t;
+}
+
+// max of the values of the threads before this one, and `init`
+__device__ long long block_excl_max(long long v, long long* scratch,
+                                    long long init) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  long long x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const long long u = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x = max(x, u);
+  }
+  const long long before_lane = __shfl_up_sync(kFull, x, 1);
+  __syncthreads();
+  if (lane == 31) scratch[warp] = x;
+  __syncthreads();
+  long long m = init;
+  for (int w = 0; w < warp; ++w) m = max(m, scratch[w]);
+  return lane > 0 ? max(m, before_lane) : m;
+}
+
+// ascending bitonic sort of key[0, n) (n a power of two), carrying val
+// when given; ends with the block synchronised
+template <typename K>
+__device__ void bitonic_sort(K* key, long long* val, int n) {
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const int l = i ^ j;
+        if (l > i) {
+          const K a = key[i], b = key[l];
+          if ((a > b) == ((i & k) == 0)) {
+            key[i] = b;
+            key[l] = a;
+            if (val) {
+              const long long t = val[i];
+              val[i] = val[l];
+              val[l] = t;
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// ops/chain.py::_union_length of the intervals [lo[i], hi[i]], i < n (a
+// power of two; padding has hi = NEG_BIG), in every thread
+__device__ long long union_length(long long* lo, long long* hi, int n,
+                                  long long* scratch) {
+  __syncthreads();
+  bitonic_sort(lo, hi, n);
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int a = min((int)threadIdx.x * per, n), b = min(a + per, n);
+  long long m = kNegBig;
+  for (int i = a; i < b; ++i) m = max(m, hi[i]);
+  long long run = block_excl_max(m, scratch, kNegBig);
+  long long sum = 0;
+  for (int i = a; i < b; ++i) {
+    const long long c = hi[i] - max(lo[i] - 1, run);
+    if (c > 0 && hi[i] != kNegBig) sum += c;
+    run = max(run, hi[i]);
+  }
+  return block_sum(sum, scratch);
+}
+
+__global__ void __launch_bounds__(kTailMaxThreads)
+chain_tail_kernel(const TailParams p) {
+  extern __shared__ long long tail_smem[];
+  __shared__ long long s_ll[32];
+  __shared__ double s_d[32];
+
+  const int pair = blockIdx.x;
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int NF = p.NF, CE = p.CE;
+  const int M = p.both ? 2 * NF : NF;
+  long long* buf_lo = tail_smem;          // reference spans, then intervals
+  long long* buf_hi = tail_smem + p.cap;
+  float* vals = reinterpret_cast<float*>(tail_smem + 2 * (size_t)p.cap);
+  const long long gq = p.tail_q[pair], gr = p.tail_r[pair];
+  const long long* q_st = p.q.starts + gq * (p.q.C + 1);
+  const long long* q_fo = p.q.frag_offs + gq * (p.q.C + 1);
+  const int* q_cl = p.q.clens + gq * p.q.C;
+  const long long* r_st = p.r.starts + gr * (p.r.C + 1);
+  const int* r_cl = p.r.clens + gr * p.r.C;
+  const size_t e0 = (size_t)pair * CE;
+  const int n_ends = min(max(p.n_chains[pair], 0), CE);
+
+  // ---- query fragments ----
+  long long n_cov = 0;
+  double sum = 0.0;
+  for (int f = tid; f < NF; f += T) {
+    const size_t row = (size_t)pair * NF + f;
+    const long long n = p.numer[row];
+    float fa = INFINITY;
+    if (n >= p.min_cov) {
+      const long long cid = frag_contig(q_fo, p.q.C, f);
+      const long long base = (f - q_fo[cid]) * p.fl;
+      const long long end = min(base + p.fl - 1, (long long)q_cl[cid] - 1);
+      const long long lo = max(p.span_lo[row], base);
+      const long long hi = min(p.span_hi[row], end);
+      fa = frag_ani(n, span_denom(p.q, gq, q_st[cid] + lo, q_st[cid] + hi),
+                    p.inv_k);
+      ++n_cov;
+      sum += fa;
+    }
+    vals[f] = fa;
+  }
+
+  // ---- reference fragments ----
+  long long over = p.ref_over[pair] ? 1 : 0;
+  if (p.both) {
+    const long long* r_fo = p.r.frag_offs + gr * (p.r.C + 1);
+    for (int f = tid; f < NF; f += T) {
+      buf_lo[f] = kSentinel;
+      buf_hi[f] = kNegBig;
+    }
+    __syncthreads();
+    for (int e = tid; e < n_ends; e += T) {
+      if (!p.end_valid[e0 + e]) continue;
+      const long long rcid =
+          min(max(p.end_rcid[e0 + e], 0LL), (long long)p.r.C - 1);
+      const long long lo = max(p.end_rmn[e0 + e] - p.ext_l, 0LL);
+      const long long hi =
+          min(p.end_rmx[e0 + e] + p.ext_r, (long long)r_cl[rcid] - 1);
+      const long long f0 = lo / p.fl;
+      const long long fo = r_fo[rcid];
+#pragma unroll
+      for (int j = 0; j < kRefSpanPieces; ++j) {
+        const long long base = (f0 + j) * p.fl;
+        const long long plo = max(lo, base);
+        const long long phi = min(hi, base + p.fl - 1);
+        const long long fj = fo + f0 + j;
+        if (plo > phi) continue;
+        if (fj < NF) {
+          atomicMin(&buf_lo[fj], plo);
+          atomicMax(&buf_hi[fj], phi);
+        } else {
+          over = 1;
+        }
+      }
+    }
+    __syncthreads();
+    for (int f = tid; f < NF; f += T) {
+      const long long n = p.numer_r[(size_t)pair * NF + f];
+      float fa = INFINITY;
+      if (n >= p.min_cov) {
+        const long long st = r_st[frag_contig(r_fo, p.r.C, f)];
+        fa = frag_ani(n, span_denom(p.r, gr, st + buf_lo[f], st + buf_hi[f]),
+                      p.inv_k);
+        ++n_cov;
+        sum += fa;
+      }
+      vals[NF + f] = fa;
+    }
+  }
+  for (int i = M + tid; i < p.Mp; i += T) vals[i] = INFINITY;
+
+  // ---- pooled estimators ----
+  const int n = (int)block_sum(n_cov, s_ll);
+  sum = block_sum(sum, s_d);
+  over = block_sum(over, s_ll);
+  bitonic_sort(vals, (long long*)nullptr, p.Mp);
+  const float q10 = interp_quantile(vals, n, M, 0.1f);
+  const float q90 = interp_quantile(vals, n, M, 0.9f);
+  long long in_win = 0;
+  double win_sum = 0.0;
+  for (int i = tid; i < n; i += T) {
+    const float s = vals[i];
+    if (s >= q10 && s <= q90) {
+      ++in_win;
+      win_sum += s;
+    }
+  }
+  in_win = block_sum(in_win, s_ll);
+  win_sum = block_sum(win_sum, s_d);
+  if (tid == 0) {
+    const int mid_hi = min(max(n / 2, 0), M - 1);
+    const int mid_lo = min(max((n - 1) >> 1, 0), M - 1);  // floor division
+    const bool none = n == 0;
+    p.ani_mean[pair] =
+        none ? 0.0f : __fdiv_rn((float)sum, fmaxf((float)n, 1.0f));
+    p.ani_robust[pair] =
+        none ? 0.0f : __fdiv_rn((float)win_sum, fmaxf((float)in_win, 1.0f));
+    p.ani_median[pair] =
+        none ? 0.0f : __fmul_rn(0.5f, __fadd_rn(vals[mid_lo], vals[mid_hi]));
+    p.n_fragments[pair] = n;
+    p.frag_overflow[pair] = over > 0 ? 1 : 0;
+  }
+  if (p.ranked)
+    for (int i = tid; i < M; i += T) p.ranked[(size_t)pair * M + i] = vals[i];
+
+  // ---- aligned fractions: unions of the kept ends' intervals ----
+  int np2 = 1;
+  while (np2 < n_ends) np2 <<= 1;
+  __syncthreads();   // the reference spans are read
+  for (int e = tid; e < np2; e += T) {
+    long long lo = kPosBig, hi = kNegBig;
+    if (e < n_ends && p.end_valid[e0 + e]) {
+      const long long cid = frag_contig(q_fo, p.q.C, p.row_sel[e0 + e]);
+      lo = q_st[cid] + max(p.end_qmn[e0 + e] - p.ext_l, 0LL);
+      hi = q_st[cid] + min(p.end_qmx[e0 + e] + p.ext_r,
+                           (long long)q_cl[cid] - 1);
+    }
+    buf_lo[e] = lo;
+    buf_hi[e] = hi;
+  }
+  const long long u_q = union_length(buf_lo, buf_hi, np2, s_ll);
+  for (int e = tid; e < np2; e += T) {
+    long long lo = kPosBig, hi = kNegBig;
+    if (e < n_ends && p.end_valid[e0 + e]) {
+      const long long rcid =
+          min(max(p.end_rcid[e0 + e], 0LL), (long long)p.r.C - 1);
+      lo = r_st[rcid] + max(p.end_rmn[e0 + e] - p.ext_l, 0LL);
+      hi = r_st[rcid] + min(p.end_rmx[e0 + e] + p.ext_r,
+                            (long long)r_cl[rcid] - 1);
+    }
+    buf_lo[e] = lo;
+    buf_hi[e] = hi;
+  }
+  const long long u_r = union_length(buf_lo, buf_hi, np2, s_ll);
+  if (tid == 0) {
+    p.af_query[pair] =
+        __fdiv_rn((float)u_q, fmaxf((float)p.q.total[gq], 1.0f));
+    p.af_ref[pair] = __fdiv_rn((float)u_r, fmaxf((float)p.r.total[gr], 1.0f));
+  }
+}
+
+int pow2_at_least(int n) {
+  int v = 1;
+  while (v < n) v <<= 1;
+  return v;
+}
+
+}  // namespace
+
+// Launches on `stream` and returns a CUDA error code (0 on success).  Each
+// side's tables are (starts, frag_offs, clens, pos, pref, total, C, S);
+// the reference side's pos and pref are read only when `both`.  `ranked`
+// ([P, M] sorted values) may be null.
+extern "C" int chain_tail_launch(
+    const long long* numer, const long long* span_lo,
+    const long long* span_hi, const int* n_chains, const long long* row_sel,
+    const unsigned char* end_valid, const long long* end_qmn,
+    const long long* end_qmx, const long long* end_rmn,
+    const long long* end_rmx, const long long* end_rcid,
+    const long long* numer_r, const unsigned char* ref_over,
+    const long long* tail_r, const long long* tail_q,
+    const long long* q_starts, const long long* q_frag_offs,
+    const int* q_clens, const long long* q_pos, const long long* q_pref,
+    const long long* q_total, int q_C, int q_S, const long long* r_starts,
+    const long long* r_frag_offs, const int* r_clens, const long long* r_pos,
+    const long long* r_pref, const long long* r_total, int r_C, int r_S,
+    int P, int NF, int CE, int both, long long min_cov, long long fl,
+    long long ext_l, long long ext_r, float inv_k, float* ani_mean,
+    float* ani_robust, float* ani_median, int* n_fragments, float* af_query,
+    float* af_ref, unsigned char* frag_overflow, float* ranked,
+    void* stream) {
+  if (P <= 0 || NF <= 0 || CE < 0 || q_C < 1 || r_C < 1 || q_S < 0 ||
+      r_S < 0 || fl <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int M = both ? 2 * NF : NF;
+  const int Mp = pow2_at_least(M);
+  const int ends = pow2_at_least(CE);
+  const int cap = both && NF > ends ? NF : ends;
+  // threads: a power of two from 32 to 256, about a quarter of the
+  // longest sort
+  const int longest = Mp > cap ? Mp : cap;
+  int T = 32;
+  while (T < kTailMaxThreads && 4 * T < longest) T <<= 1;
+  const size_t smem = 2 * (size_t)cap * sizeof(long long) +
+                      (size_t)Mp * sizeof(float);
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (smem + kStaticRoom > (size_t)optin) return (int)cudaErrorInvalidValue;
+  if (smem + kStaticRoom > kDefaultSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        chain_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  TailParams p{numer, span_lo, span_hi, n_chains, row_sel, end_valid,
+               end_qmn, end_qmx, end_rmn, end_rmx, end_rcid, numer_r,
+               ref_over, tail_r, tail_q,
+               Side{q_starts, q_frag_offs, q_clens, q_pos, q_pref, q_total,
+                    q_C, q_S},
+               Side{r_starts, r_frag_offs, r_clens, r_pos, r_pref, r_total,
+                    r_C, r_S},
+               NF, CE, both, Mp, cap, min_cov, fl, ext_l, ext_r, inv_k,
+               ani_mean, ani_robust, ani_median, n_fragments, af_query,
+               af_ref, frag_overflow, ranked};
+  chain_tail_kernel<<<P, T, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
 }

@@ -18,9 +18,10 @@ hold).  For G_r references x G_q queries, ``chain_block``:
 4. ``_post_dp_block``: per-chain statistics in [rows, PF] bins keyed by
    chain root (``ops/chain_post.py``: a CUDA kernel on the card, in place
    of the JAX per-row sort + segmented scans, with the same values),
-   per-fragment numerators and span denominators on both genomes'
-   fragment grids, the pooled mean / trimmed mean / median, and aligned
-   fractions from interval unions of the kept chains.
+   then the per-pair tail (a second CUDA kernel on the card): span
+   denominators on both genomes' fragment grids, the pooled mean /
+   trimmed mean / median, and aligned fractions from interval unions of
+   the kept chains.
 
 Integer outputs equal the JAX package's bit for bit; f32 estimators and
 aligned fractions agree within 1e-6 (summation order and ``pow`` may
@@ -46,8 +47,7 @@ import torch
 from ..utils import profiling
 from . import prng
 from .chain_dp import chain_dp
-from .chain_post import KEYS as POST_KEYS
-from .chain_post import chain_post
+from .chain_post import GenomeTables, chain_post, chain_tail
 from .sketch import I32_SENTINEL, U32_SENTINEL, DeviceSketch
 
 NEG_BIG = -(2**30)
@@ -146,8 +146,8 @@ def _contig_layout(sk: DeviceSketch, fl: int):
                        device=clens.device)
     starts = torch.cat([zero, torch.cumsum(clens, -1)], -1)
     slot = torch.arange(clens.shape[-1], device=clens.device)
-    live = slot < sk.n_contigs.to(torch.int64).unsqueeze(-1)
-    nfr = torch.where(live, -(-clens // fl), 0)
+    live = slot < sk.n_contigs.unsqueeze(-1)
+    nfr = (clens + (fl - 1)) // fl * live
     frag_offs = torch.cat([zero, torch.cumsum(nfr, -1)], -1)
     return starts, frag_offs
 
@@ -170,13 +170,13 @@ def _searchsorted_rows(table: torch.Tensor, rows: torch.Tensor,
 
 
 def _denom_prefix(sk: DeviceSketch, starts: torch.Tensor, cfg: ChainConfig):
-    """(sorted global seed positions [G, S], prefix counts of
-    denominator-eligible seeds [G, S+1]) of a stacked sketch."""
+    """(sorted global seed positions [G, S], denominator-eligible seeds up
+    to and including each [G, S]) of a stacked sketch."""
     C = sk.contig_lengths.shape[-1]
     S = sk.seed_budget
     denom_thr = cfg.denom_mask_mult or cfg.max_seed_multiplicity
     slot = torch.arange(S, device=starts.device)
-    p_valid = slot < sk.n_seeds.to(torch.int64).unsqueeze(-1)
+    p_valid = slot < sk.n_seeds.unsqueeze(-1)
     if cfg.mask_repetitive_denom == "none":
         p_ok = p_valid
     else:
@@ -184,10 +184,7 @@ def _denom_prefix(sk: DeviceSketch, starts: torch.Tensor, cfg: ChainConfig):
     p_cid = sk.p_contig_ids.to(torch.int64).clamp(0, C - 1)
     p_gpos = torch.where(p_valid,
                          starts.gather(1, p_cid) + sk.p_positions, POS_BIG)
-    zero = torch.zeros((p_ok.shape[0], 1), dtype=torch.int64,
-                       device=starts.device)
-    prefix = torch.cat([zero, torch.cumsum(p_ok.to(torch.int64), 1)], 1)
-    return p_gpos, prefix
+    return p_gpos, torch.cumsum(p_ok, 1)
 
 
 def _interp_quantile(sorted_vals: torch.Tensor, n: torch.Tensor,
@@ -213,8 +210,8 @@ def _bootstrap_ci(s: torch.Tensor, n_cov: torch.Tensor, R: int):
     ``n_cov`` entries of each row of the sorted ``s`` [P, M]: R resamples
     of M indices drawn as the JAX package draws them
     (``randint(PRNGKey(1539), (R, M), 0, max(n_cov, 1))``, ``ops/prng.py``),
-    the columns below ``n_cov`` summed in f32.  Rows go in blocks of at
-    most ``CI_BLOCK`` table elements."""
+    the columns below ``n_cov`` summed in f32; 0 in rows with no covered
+    entry.  Rows go in blocks of at most ``CI_BLOCK`` table elements."""
     P, M = s.shape
     f32, i64 = torch.float32, torch.int64
     high, low = prng.bootstrap_bits(R, M, s.device)
@@ -232,7 +229,9 @@ def _bootstrap_ci(s: torch.Tensor, n_cov: torch.Tensor, R: int):
         boots.append(vals.sum(-1) / denom[sl].unsqueeze(-1))
     boot_s = torch.sort(torch.cat(boots), -1).values
     n = torch.full((P,), R, dtype=torch.int32, device=s.device)
-    return _interp_quantile(boot_s, n, 0.05), _interp_quantile(boot_s, n, 0.95)
+    no_cov = n_cov == 0
+    return tuple(_interp_quantile(boot_s, n, q).masked_fill(no_cov, 0.0)
+                 for q in (0.05, 0.95))
 
 
 def _pooled_estimators(fa: torch.Tensor, covered: torch.Tensor,
@@ -267,9 +266,8 @@ def _pooled_estimators(fa: torch.Tensor, covered: torch.Tensor,
         n_fragments=n_cov,
     )
     if cfg.est_ci:
-        ci_lo, ci_hi = _bootstrap_ci(s, n_cov, cfg.ci_iterations)
-        out["ani_ci_low"] = torch.where(no_cov, zero, ci_lo)
-        out["ani_ci_high"] = torch.where(no_cov, zero, ci_hi)
+        out["ani_ci_low"], out["ani_ci_high"] = _bootstrap_ci(
+            s, n_cov, cfg.ci_iterations)
     return out
 
 
@@ -411,10 +409,19 @@ def _bin_reduce(values, flat_bin, n_bins, reduce, init):
                                include_self=True)
 
 
+def _genome_tables(sk: DeviceSketch, starts, frag_offs, cfg: ChainConfig,
+                   *, denom: bool = True) -> GenomeTables:
+    """One side's per-genome tables for the per-pair tail; ``denom``
+    builds the seed tables of its span denominators."""
+    pos, pref = _denom_prefix(sk, starts, cfg) if denom else (None, None)
+    return GenomeTables(starts, frag_offs, sk.contig_lengths, pos, pref,
+                        sk.total_len)
+
+
 def _post_dp_block(refs: DeviceSketch, queries: DeviceSketch,
                    w1g, w2g, scores, roots, row_bounds, q_starts,
                    q_frag_offs, cfg: ChainConfig, budgets: EngineBudgets,
-                   tail_r, tail_q, r_frag_offs, frag_cid_g,
+                   tail_r, tail_q, r_starts, r_frag_offs,
                    rcid_bits: int) -> dict:
     """Per-chain statistics + estimators for a block of P pairs.
 
@@ -422,89 +429,20 @@ def _post_dp_block(refs: DeviceSketch, queries: DeviceSketch,
     ``refs``/``queries``.  The per-chain stage (``ops/chain_post.py``:
     the CUDA kernel on the card) bins chains by (row, root), keeps them,
     and compacts the kept chain ends into a [P, max_chains_per_pair]
-    table for the per-pair tail (AF unions, ref-side spans); overflow is
+    table; the per-pair tail (a second CUDA kernel on the card) takes the
+    denominators, the estimators and the AF unions from them; overflow is
     reported in the ``n_chains`` output.  ``frag_overflow`` [P] is set
     where a kept anchor or a kept chain's span lies in a reference
     fragment >= NF, which the ref grid drops."""
-    fl = cfg.fragment_length
     NF = budgets.max_fragments
-    P = tail_r.shape[0]
-    dev = w1g.device
-    i64 = torch.int64
-    ext_l, ext_r = cfg.extend_left, cfg.extend_right
-
+    CE = budgets.max_chains_per_pair
     st = chain_post(w1g, w2g, scores, roots, row_bounds, tail_r, r_frag_offs,
-                    cfg, NF=NF, CE=budgets.max_chains_per_pair,
-                    rcid_bits=rcid_bits)
-    (numer, span_lo, span_hi, n_chains, row_sel, end_valid, end_qmn, end_qmx,
-     end_rmn, end_rmx, end_rcid, numer_r, ref_over) = (
-        st[k] for k in POST_KEYS)
-    Cr = refs.contig_lengths.shape[1]
-
-    # ---- per-pair tail: denominators, estimators, AF unions ----
-    frag_ids = torch.arange(NF, device=dev, dtype=i64)
-    q_pg, q_pref = _denom_prefix(queries, q_starts, cfg)
-    r_starts_all, _ = _contig_layout(refs, fl)
-
-    frag_base_g = (frag_ids[None, :] - q_frag_offs.gather(1, frag_cid_g)) * fl
-    frag_clen_g = queries.contig_lengths.to(i64).gather(1, frag_cid_g)
-    frag_end_g = torch.minimum(frag_base_g + fl - 1, frag_clen_g - 1)
-    qst_frag_g = q_starts.gather(1, frag_cid_g)
-
-    lo = torch.maximum(span_lo.view(P, NF), frag_base_g[tail_q])
-    hi = torch.minimum(span_hi.view(P, NF), frag_end_g[tail_q])
-    g_lo = qst_frag_g[tail_q] + lo
-    g_hi = qst_frag_g[tail_q] + hi
-    q_pref_p = q_pref[tail_q]
-    q_denom = (
-        q_pref_p.gather(1, _searchsorted_rows(q_pg, tail_q, g_hi + 1)) -
-        q_pref_p.gather(1, _searchsorted_rows(q_pg, tail_q, g_lo)))
-    numer_p = numer.view(P, NF)
-    frag_ani_q, covered_q = _frag_ani(numer_p, q_denom, cfg)
-
-    rcid_e = end_rcid.clamp(0, Cr - 1)
-    qcid_e = frag_cid_g[tail_q[:, None], row_sel]
-    if cfg.est_side == "both":
-        span_lo_r, span_hi_r, span_over = _ref_spans(
-            refs.contig_lengths.to(i64)[tail_r], r_frag_offs[tail_r],
-            end_valid, end_rmn, end_rmx, rcid_e, cfg, NF)
-        ref_over |= span_over
-        frag_cid_r = _frag_contig(r_frag_offs, NF, Cr)          # [G_r, NF]
-        rst_frag_g = r_starts_all.gather(1, frag_cid_r)
-        g_lo_r = rst_frag_g[tail_r] + span_lo_r
-        g_hi_r = rst_frag_g[tail_r] + span_hi_r
-        r_pg, r_pref = _denom_prefix(refs, r_starts_all, cfg)
-        r_pref_p = r_pref[tail_r]
-        r_denom = (
-            r_pref_p.gather(1, _searchsorted_rows(r_pg, tail_r, g_hi_r + 1)) -
-            r_pref_p.gather(1, _searchsorted_rows(r_pg, tail_r, g_lo_r)))
-        fa_r, covered_r = _frag_ani(numer_r, r_denom, cfg)
-        fa_all = torch.cat([frag_ani_q, fa_r], 1)
-        cov_all = torch.cat([covered_q, covered_r], 1)
-    else:
-        fa_all, cov_all = frag_ani_q, covered_q
-    out = _pooled_estimators(fa_all, cov_all, cfg)
-
-    q_st = q_starts[tail_q]
-    q_clens = queries.contig_lengths.to(i64)[tail_q]
-    r_st = r_starts_all[tail_r]
-    r_clens = refs.contig_lengths.to(i64)[tail_r]
-    q_base = q_st.gather(1, qcid_e)
-    q_lo = q_base + torch.clamp(end_qmn - ext_l, min=0)
-    q_hi = q_base + torch.minimum(end_qmx + ext_r,
-                                  q_clens.gather(1, qcid_e) - 1)
-    r_base = r_st.gather(1, rcid_e)
-    r_lo = r_base + torch.clamp(end_rmn - ext_l, min=0)
-    r_hi = r_base + torch.minimum(end_rmx + ext_r,
-                                  r_clens.gather(1, rcid_e) - 1)
-    f32 = torch.float32
-    out["af_query"] = _union_length(q_lo, q_hi, end_valid).to(f32) / \
-        torch.clamp(queries.total_len[tail_q].to(f32), min=1.0)
-    out["af_ref"] = _union_length(r_lo, r_hi, end_valid).to(f32) / \
-        torch.clamp(refs.total_len[tail_r].to(f32), min=1.0)
-    out["n_chains"] = n_chains
-    out["frag_overflow"] = ref_over
-    return out
+                    cfg, NF=NF, CE=CE, rcid_bits=rcid_bits)
+    q = _genome_tables(queries, q_starts, q_frag_offs, cfg)
+    # a triangle group has one stack on both sides
+    r = q if refs is queries else _genome_tables(
+        refs, r_starts, r_frag_offs, cfg, denom=cfg.est_side == "both")
+    return chain_tail(st, tail_r, tail_q, q, r, cfg, NF=NF, CE=CE)
 
 
 def _frag_ani(numer, denom, cfg: ChainConfig):
@@ -723,11 +661,11 @@ def _chain_anchors(refs: DeviceSketch, queries: DeviceSketch, a: dict,
         scores, roots = chain_dp(grid["qpos"], grid["rpos"], grid["meta"],
                                  cfg)
     with profiling.scope("chain/post", dev):
-        _, r_frag_offs = _contig_layout(refs, fl)
+        r_starts, r_frag_offs = (q_starts, q_frag_offs) if refs is queries \
+            else _contig_layout(refs, fl)
         out = _post_dp_block(refs, queries, w1g, w2g, scores, roots,
                              row_bounds, q_starts, q_frag_offs, cfg, budgets,
-                             tail_r, tail_q, r_frag_offs, frag_cid_tab,
-                             rbits)
+                             tail_r, tail_q, r_starts, r_frag_offs, rbits)
     out["pos_overflow"] = torch.full((P,), pos_overflow, dtype=torch.bool,
                                      device=dev)
     bounds = row_bounds[torch.arange(P + 1, device=dev) * NF]

@@ -1,10 +1,10 @@
-"""Per-chain stage of the packed post-DP: the CUDA kernel's wrapper, its
-plain version and its launch count.
+"""The packed post-DP on the card: the per-chain stage and the per-pair
+tail, each a CUDA kernel with its wrapper, its plain version and its
+launch count.
 
 For the [P*NF, PF] grid of a ``chain_block`` or ``chain_triangle`` call
 (row p*NF + f = pair p, query fragment f) and the chain DP's roots, the
-stage gives what the per-pair tail of ``ops/chain.py::_post_dp_block``
-reads:
+per-chain stage (:func:`chain_post`) gives what the per-pair tail reads:
 
 * per row: ``numer`` (anchors of kept chains), ``span_lo`` / ``span_hi``
   (extended query span of the kept chains; ``POS_BIG`` / ``NEG_BIG``
@@ -22,23 +22,35 @@ it has ``min_anchors_chain`` anchors and (with ``min_chain_score`` > 0)
 a best score of at least ``min_chain_score``, or (with ``keep_long_span``
 > 0) at least two anchors spanning ``keep_long_span`` query bases.
 
-The kernel (``csrc/chain_post.cu``) replaces no TPU kernel: the JAX
-package computes this stage with XLA ops (a per-row sort and segmented
-scans).  Its bound is bytes: 24 B per valid grid cell (``w1``, ``w2``
-int64, score f32, root int32) read once, plus the [P, NF] and [P, CE]
-outputs.  It runs one block per pair, one warp per row, with the row's
-chain bins in shared memory; the source says how that meets the bound.
-:func:`chain_post_plain` is the stage in PyTorch, the CPU path and the
-kernel's parity oracle: every output is integer (the score only enters
-the keep rule), so the two are bit-equal.  :func:`chain_post` takes the
-plain version for CPU tensors; for CUDA tensors it launches the kernel
-or raises.
+The per-pair tail (:func:`chain_tail`) turns those into the pair's
+estimates: span denominators on both genomes' fragment grids (the
+reference spans cut into ``_REF_SPAN_PIECES`` pieces), fragment ANIs,
+the pooled mean / 10-90% trimmed mean / median, and the aligned
+fractions from the unions of the kept chain ends.  It reads each side's
+per-genome tables (:class:`GenomeTables`), built once per call.
+
+Neither kernel (``csrc/chain_post.cu``) replaces a TPU kernel: the JAX
+package computes both stages with XLA ops.  The per-chain kernel's bound
+is bytes: 24 B per valid grid cell (``w1``, ``w2`` int64, score f32,
+root int32) read once, plus the [P, NF] and [P, CE] outputs; it runs one
+block per pair, one warp per row, with the row's chain bins in shared
+memory.  The tail kernel runs one block per pair over the stage's [P, NF]
+and [P, CE] outputs, with its sorts in shared memory; the source says
+how each meets its bound.  :func:`chain_post_plain` and
+:func:`chain_tail_plain` are the stages in PyTorch, the CPU path and the
+kernels' parity oracles.  The per-chain stage is integer, so its kernel
+is bit-equal to the plain version; so are the tail's counts, flags and
+aligned fractions, while its f32 means sum in another order.  Both
+wrappers take the plain version for CPU tensors; for CUDA tensors
+:func:`chain_post` launches its kernel or raises, and :func:`chain_tail`
+launches its kernel where the pair's values fit its shared memory
+(:func:`tail_fits`) and takes the plain version on the card otherwise.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, NamedTuple, Optional
 
 import torch
 
@@ -51,6 +63,11 @@ if TYPE_CHECKING:
 # the most anchors per fragment row the kernel takes: one warp's chain
 # bins (24 B per column) fill most of an H100 block's shared memory
 MAX_PF = 8192
+
+# the most values a pair pools (NF, or 2 NF with est_side "both") and the
+# most kept chain ends (max_chains_per_pair) the tail kernel takes: its
+# sorts and the reference spans live in shared memory (80 KB at the limit)
+MAX_TAIL = 4096
 
 KEYS = ("numer", "span_lo", "span_hi", "n_chains", "row_sel", "end_valid",
         "end_qmn", "end_qmx", "end_rmn", "end_rmx", "end_rcid", "numer_r",
@@ -270,3 +287,255 @@ def chain_post(w1g, w2g, scores, roots, row_bounds, tail_r, r_frag_offs,
 
 
 chain_post.launches = 0
+
+
+# ---------------------------------------------------------------- tail
+
+
+class GenomeTables(NamedTuple):
+    """One side's per-genome tables for the per-pair tail (row g = genome
+    g of the side's stack), built once per call.  ``pos`` and ``pref`` may
+    be None on the reference side when ``est_side`` is ``"chunk"``: only
+    the aligned fraction reads that side then.  A fragment's contig is the
+    last one whose fragment offset is at or before it (``_frag_contig``)."""
+
+    starts: torch.Tensor                # int64 [G, C+1] contig starts
+    frag_offs: torch.Tensor             # int64 [G, C+1] fragment offsets
+    clens: torch.Tensor                 # int32 [G, C] contig lengths
+    pos: Optional[torch.Tensor]         # int64 [G, S] sorted seed positions
+    pref: Optional[torch.Tensor]        # int64 [G, S] eligible seeds up to
+                                        # and including each
+    total: torch.Tensor                 # int64 [G] genome length
+
+
+def tail_fits(NF: int, CE: int, est_side: str) -> bool:
+    """Whether a call's pairs fit the tail kernel's shared memory: the
+    pooled values (NF, or 2 NF with ``est_side`` "both") and the kept
+    chain ends, each at most :data:`MAX_TAIL`."""
+    M = 2 * NF if est_side == "both" else NF
+    return M <= MAX_TAIL and CE <= MAX_TAIL
+
+
+def chain_tail_plain(st: dict, tail_r, tail_q, q: GenomeTables,
+                     r: GenomeTables, cfg: ChainConfig, *, NF: int,
+                     CE: int) -> dict:
+    """The tail in PyTorch over the per-chain stage's outputs ``st`` (the
+    dict of :data:`KEYS`): query-fragment denominators by a searchsorted
+    into the query genome's seed positions, the reference spans and
+    denominators, the pooled estimators, and the aligned fractions.
+    Returns the estimator dict of ``ops/chain.py::_post_dp_block``."""
+    from .chain import (_frag_ani, _frag_contig, _pooled_estimators,
+                        _ref_spans, _searchsorted_rows, _union_length)
+
+    fl = cfg.fragment_length
+    P = tail_r.shape[0]
+    dev = tail_r.device
+    i64 = torch.int64
+    ext_l, ext_r = cfg.extend_left, cfg.extend_right
+    Cr = r.clens.shape[1]
+    end_valid = st["end_valid"]
+    frag_cid_g = _frag_contig(q.frag_offs, NF, q.clens.shape[1])
+
+    frag_ids = torch.arange(NF, device=dev, dtype=i64)
+    frag_base_g = (frag_ids[None, :] - q.frag_offs.gather(1, frag_cid_g)) * fl
+    frag_clen_g = q.clens.to(i64).gather(1, frag_cid_g)
+    frag_end_g = torch.minimum(frag_base_g + fl - 1, frag_clen_g - 1)
+    qst_frag_g = q.starts.gather(1, frag_cid_g)
+
+    lo = torch.maximum(st["span_lo"].view(P, NF), frag_base_g[tail_q])
+    hi = torch.minimum(st["span_hi"].view(P, NF), frag_end_g[tail_q])
+    g_lo = qst_frag_g[tail_q] + lo
+    g_hi = qst_frag_g[tail_q] + hi
+    # eligible seeds before each index: [G, S+1]
+    before = lambda pref: torch.nn.functional.pad(pref, (1, 0))
+    q_pref_p = before(q.pref)[tail_q]
+    q_denom = (
+        q_pref_p.gather(1, _searchsorted_rows(q.pos, tail_q, g_hi + 1)) -
+        q_pref_p.gather(1, _searchsorted_rows(q.pos, tail_q, g_lo)))
+    frag_ani_q, covered_q = _frag_ani(st["numer"].view(P, NF), q_denom, cfg)
+
+    rcid_e = st["end_rcid"].clamp(0, Cr - 1)
+    qcid_e = frag_cid_g[tail_q[:, None], st["row_sel"]]
+    frag_overflow = st["ref_over"]
+    if cfg.est_side == "both":
+        span_lo_r, span_hi_r, span_over = _ref_spans(
+            r.clens.to(i64)[tail_r], r.frag_offs[tail_r], end_valid,
+            st["end_rmn"], st["end_rmx"], rcid_e, cfg, NF)
+        frag_overflow = frag_overflow | span_over
+        frag_cid_r = _frag_contig(r.frag_offs, NF, Cr)          # [G_r, NF]
+        rst_frag_g = r.starts.gather(1, frag_cid_r)
+        g_lo_r = rst_frag_g[tail_r] + span_lo_r
+        g_hi_r = rst_frag_g[tail_r] + span_hi_r
+        r_pref_p = before(r.pref)[tail_r]
+        r_denom = (
+            r_pref_p.gather(1, _searchsorted_rows(r.pos, tail_r, g_hi_r + 1)) -
+            r_pref_p.gather(1, _searchsorted_rows(r.pos, tail_r, g_lo_r)))
+        fa_r, covered_r = _frag_ani(st["numer_r"], r_denom, cfg)
+        fa_all = torch.cat([frag_ani_q, fa_r], 1)
+        cov_all = torch.cat([covered_q, covered_r], 1)
+    else:
+        fa_all, cov_all = frag_ani_q, covered_q
+    out = _pooled_estimators(fa_all, cov_all, cfg)
+
+    q_st = q.starts[tail_q]
+    q_clens = q.clens.to(i64)[tail_q]
+    r_st = r.starts[tail_r]
+    r_clens = r.clens.to(i64)[tail_r]
+    q_base = q_st.gather(1, qcid_e)
+    q_lo = q_base + torch.clamp(st["end_qmn"] - ext_l, min=0)
+    q_hi = q_base + torch.minimum(st["end_qmx"] + ext_r,
+                                  q_clens.gather(1, qcid_e) - 1)
+    r_base = r_st.gather(1, rcid_e)
+    r_lo = r_base + torch.clamp(st["end_rmn"] - ext_l, min=0)
+    r_hi = r_base + torch.minimum(st["end_rmx"] + ext_r,
+                                  r_clens.gather(1, rcid_e) - 1)
+    f32 = torch.float32
+    out["af_query"] = _union_length(q_lo, q_hi, end_valid).to(f32) / \
+        torch.clamp(q.total[tail_q].to(f32), min=1.0)
+    out["af_ref"] = _union_length(r_lo, r_hi, end_valid).to(f32) / \
+        torch.clamp(r.total[tail_r].to(f32), min=1.0)
+    out["n_chains"] = st["n_chains"]
+    out["frag_overflow"] = frag_overflow
+    return out
+
+
+def _check_tail(st: dict, tail_r, tail_q, q: GenomeTables,
+                r: GenomeTables, cfg: ChainConfig, NF: int, CE: int) -> list:
+    """Raise on what the tail kernel does not take; returns every input
+    tensor."""
+    def want(name, t, dtype, shape):
+        if t is None or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            got = "None" if t is None else f"{t.dtype} {list(t.shape)}"
+            raise ValueError(f"chain_tail: {name} must be a {dtype} "
+                             f"{list(shape)} tensor, got {got}")
+        return t
+
+    if tail_r.dim() != 1 or NF <= 0 or CE < 0:
+        raise ValueError(f"chain_tail: tail_r must be a [P] tensor, NF > 0, "
+                         f"CE >= 0; got {list(tail_r.shape)}, NF = {NF}, "
+                         f"CE = {CE}")
+    P = tail_r.shape[0]
+    i64, b = torch.int64, torch.bool
+    ins = [want("tail_r", tail_r, i64, (P,)), want("tail_q", tail_q, i64, (P,))]
+    for k in ("numer", "span_lo", "span_hi"):
+        ins.append(want(k, st[k], i64, (P * NF,)))
+    ins.append(want("n_chains", st["n_chains"], torch.int32, (P,)))
+    for k in ("row_sel", "end_qmn", "end_qmx", "end_rmn", "end_rmx",
+              "end_rcid"):
+        ins.append(want(k, st[k], i64, (P, CE)))
+    ins.append(want("end_valid", st["end_valid"], b, (P, CE)))
+    ins.append(want("numer_r", st["numer_r"], i64, (P, NF)))
+    ins.append(want("ref_over", st["ref_over"], b, (P,)))
+    denom_r = cfg.est_side == "both"
+    for side, t in (("q", q), ("r", r)):
+        G, C = t.clens.shape if t.clens.dim() == 2 else (-1, -1)
+        ins.append(want(f"{side}.clens", t.clens, torch.int32, (G, C)))
+        for k in ("starts", "frag_offs"):
+            ins.append(want(f"{side}.{k}", getattr(t, k), i64, (G, C + 1)))
+        ins.append(want(f"{side}.total", t.total, i64, (G,)))
+        if side == "q" or denom_r:
+            S = t.pos.shape[-1] if t.pos is not None else -1
+            ins.append(want(f"{side}.pos", t.pos, i64, (G, S)))
+            ins.append(want(f"{side}.pref", t.pref, i64, (G, S)))
+    return ins
+
+
+def _tail_lib() -> ctypes.CDLL:
+    lib = _lib()
+    if not getattr(lib, "_tail_argtypes_set", False):
+        p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_float)
+        side = [p] * 6 + [i, i]
+        lib.chain_tail_launch.argtypes = (
+            [p] * 15 + side + side + [i] * 4 + [ll] * 4 + [f] + [p] * 8 +
+            [p])
+        lib.chain_tail_launch.restype = ctypes.c_int
+        lib._tail_argtypes_set = True
+    return lib
+
+
+def chain_tail(st: dict, tail_r, tail_q, q: GenomeTables, r: GenomeTables,
+               cfg: ChainConfig, *, NF: int, CE: int) -> dict:
+    """The per-pair tail of P pairs -> ``ani_mean``, ``ani_robust``,
+    ``ani_median``, ``n_fragments`` (with ``cfg.est_ci`` also
+    ``ani_ci_low`` / ``ani_ci_high``), ``af_query``, ``af_ref``,
+    ``n_chains`` and ``frag_overflow`` (the stage's ``ref_over`` or a
+    reference span piece past NF), each [P].
+
+    ``st`` is :func:`chain_post`'s dict (its kept ends are the first
+    min(n_chains, CE) slots of each pair), ``tail_r`` / ``tail_q`` [P]
+    each pair's rows of ``r`` / ``q``.  CPU tensors take
+    :func:`chain_tail_plain`, and so do CUDA tensors past
+    :func:`tail_fits`; the others launch the kernel on their device's
+    current stream (``chain_tail.launches`` counts the launches; with
+    profiling on, the ``post_tail_pairs`` counter the pairs).  With
+    ``cfg.est_ci`` the kernel also writes each pair's sorted values, and
+    ``_bootstrap_ci`` draws on them as on the plain version's."""
+    ins = _check_tail(st, tail_r, tail_q, q, r, cfg, NF, CE)
+    P = tail_r.shape[0]
+    args = (st, tail_r, tail_q, q, r, cfg)
+    if all(t.device.type == "cpu" for t in ins):
+        return chain_tail_plain(*args, NF=NF, CE=CE)
+    dev = tail_r.device
+    if dev.type != "cuda" or any(t.device != dev for t in ins):
+        raise ValueError(f"chain_tail: inputs must share one CUDA device or "
+                         f"all lie on the CPU, got "
+                         f"{sorted({str(t.device) for t in ins})}")
+    if P == 0 or not tail_fits(NF, CE, cfg.est_side):
+        return chain_tail_plain(*args, NF=NF, CE=CE)
+    from .chain import _bootstrap_ci
+
+    both = cfg.est_side == "both"
+    M = 2 * NF if both else NF
+    f32 = torch.float32
+
+    def empty(shape, dtype=f32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = dict(ani_mean=empty(P), ani_robust=empty(P), ani_median=empty(P),
+               n_fragments=empty(P, torch.int32))
+    held = []   # contiguous copies stay alive until the launch is queued
+
+    def ptr(t):
+        if t is None:
+            return None
+        held.append(t.contiguous())
+        return held[-1].data_ptr()
+
+    def side(t: GenomeTables):
+        return [ptr(t.starts), ptr(t.frag_offs), ptr(t.clens), ptr(t.pos),
+                ptr(t.pref), ptr(t.total), t.clens.shape[1],
+                0 if t.pos is None else t.pos.shape[1]]
+
+    af_query, af_ref = empty(P), empty(P)
+    frag_overflow = empty(P, torch.bool)
+    ranked = empty((P, M)) if cfg.est_ci else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _tail_lib().chain_tail_launch(
+            *(ptr(st[k]) for k in ("numer", "span_lo", "span_hi",
+                                   "n_chains", "row_sel", "end_valid",
+                                   "end_qmn", "end_qmx", "end_rmn",
+                                   "end_rmx", "end_rcid", "numer_r",
+                                   "ref_over")),
+            ptr(tail_r), ptr(tail_q), *side(q), *side(r),
+            P, NF, CE, int(both), max(1, int(cfg.min_frag_anchors)),
+            int(cfg.fragment_length), int(cfg.extend_left),
+            int(cfg.extend_right), float(1.0 / float(cfg.k)),
+            *(ptr(t) for t in (*out.values(), af_query, af_ref,
+                               frag_overflow, ranked)), stream)
+    if err != 0:
+        raise RuntimeError(f"chain_tail kernel launch failed: CUDA error "
+                           f"{err}")
+    chain_tail.launches += 1
+    if profiling.enabled():
+        profiling.stats().add("post_tail_pairs", P)
+    if cfg.est_ci:
+        out["ani_ci_low"], out["ani_ci_high"] = _bootstrap_ci(
+            ranked, out["n_fragments"], cfg.ci_iterations)
+    out.update(af_query=af_query, af_ref=af_ref, n_chains=st["n_chains"],
+               frag_overflow=frag_overflow)
+    return out
+
+
+chain_tail.launches = 0

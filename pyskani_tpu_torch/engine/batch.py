@@ -176,10 +176,12 @@ def pairs_ani(batch: DeviceSketch, ref_idx, query_idx, *, cfg: ChainConfig,
     ``chain_pairs`` (one DP launch) per chunk of 4 pairs.  Every
     pair has its own anchor pool, so the last chunk needs no padding (the
     JAX package pads it with the pair (0, 0)).  Returns a dict of [P]
-    tensors."""
+    tensors.  With profiling on, the pairs count in ``pairs_ani_pairs``."""
     ri, qi = (torch.as_tensor(np.asarray(x), dtype=torch.int64,
                               device=batch.device)
               for x in (ref_idx, query_idx))
+    if profiling.enabled():
+        profiling.stats().add("pairs_ani_pairs", ri.shape[0])
     parts = [chain_pairs(take_sketch(batch, ri[lo:lo + 4]),
                          take_sketch(batch, qi[lo:lo + 4]), cfg=cfg,
                          budgets=budgets)
@@ -273,7 +275,8 @@ def triangle(sketches: List[HostSketch], cfg: ChainConfig | None = None,
     With profiling on, the call is the span ``triangle``, holding
     ``triangle/stack``, one ``triangle/group`` per group, one
     ``triangle/cross`` per tile, ``triangle/pairs_ani`` and
-    ``triangle/merge``.
+    ``triangle/merge``; the genomes that fail ``fits_packed`` count in
+    ``triangle_giants``.
     """
     dev = sketches[0].device.device if sketches else None
     with profiling.scope("triangle", dev):
@@ -299,9 +302,11 @@ def _triangle(sketches, cfg, budgets, block, anchors_per_pair, group):
                                                   device=dev))
 
     cb = batch.contig_lengths.shape[1]
-    pk, ri_f, qi_f = split_giants(n, [
-        i for i, s in enumerate(sketches)
-        if not fits_packed(max(s.lengths, default=0), s.total_len, cb)])
+    giant = [i for i, s in enumerate(sketches)
+             if not fits_packed(max(s.lengths, default=0), s.total_len, cb)]
+    if profiling.enabled():
+        profiling.stats().add("triangle_giants", len(giant))
+    pk, ri_f, qi_f = split_giants(n, giant)
     starts = list(range(0, len(pk), group))
     pending = []          # (ref indices, query indices, dict of [P] tensors)
     for a in starts:

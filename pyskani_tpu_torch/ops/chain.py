@@ -34,7 +34,8 @@ reference grids truncate a result silently.
 With profiling on (``utils/profiling.py``), each path's stages are the
 spans ``chain/join`` (the join), ``chain/grid`` (the anchor sorts and the
 DP grid), ``chain/dp`` (the kernel launch) and ``chain/post`` (the
-post-DP statistics).
+post-DP statistics), and each call of ``chain_block``, ``chain_triangle``
+or ``chain_pairs`` adds 1 to the counter ``chain_calls``.
 """
 
 from __future__ import annotations
@@ -351,6 +352,13 @@ def fits_packed(longest: int, total: int, contig_budget: int) -> bool:
     return longest < packed_cap(contig_budget) and total < MAX_PACKED_TOTAL
 
 
+def _count_call() -> None:
+    """One call of a chain pipeline (``chain_block``, ``chain_triangle``
+    or ``chain_pairs``) into the ``chain_calls`` counter."""
+    if profiling.enabled():
+        profiling.stats().add("chain_calls")
+
+
 def grid_fits(pairs: int, max_fragments: int) -> bool:
     """Whether ``pairs`` pairs fit one packed call's DP grid."""
     return pairs * max_fragments <= MAX_GRID_ROWS
@@ -597,6 +605,7 @@ def chain_block(refs: DeviceSketch, queries: DeviceSketch, *,
     if total_anchors is None:
         total_anchors = P * budgets.max_anchors
     dev = refs.kmers.device
+    _count_call()
 
     q_starts, q_frag_offs = _contig_layout(queries, fl)   # [G_q, C+1]
     with profiling.scope("chain/join", dev):
@@ -790,6 +799,7 @@ def chain_triangle(genomes: DeviceSketch, *, cfg: ChainConfig,
     if total_anchors is None:
         total_anchors = P * budgets.max_anchors
     dev = genomes.kmers.device
+    _count_call()
 
     q_starts, q_frag_offs = _contig_layout(genomes, cfg.fragment_length)
     with profiling.scope("chain/join", dev):
@@ -1130,6 +1140,7 @@ def chain_pairs(refs: DeviceSketch, queries: DeviceSketch, *,
     NF = budgets.max_fragments
     B = refs.kmers.shape[0]
     dev = refs.kmers.device
+    _count_call()
     pre = [_pre_dp(_take(refs, i), _take(queries, i), cfg, budgets)
            for i in range(B)]
     merged = {key: torch.cat([p[0][key] for p in pre])

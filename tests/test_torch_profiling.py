@@ -139,10 +139,13 @@ def test_counters_and_calls_equal_jax():
     assert {k: got["calls"][k] for k in jax_scopes} == want["calls"] == \
         {"sketch": 5, "screen": 2, "chain": 2}
     # the port's own counters: the hits of the two queries that reached
-    # the correction, none corrected (learned_ani=False)
-    assert set(got["counters"]) == set(want["counters"]) | set(HIT_COUNTERS)
+    # the correction, none corrected (learned_ani=False), and the one
+    # chained query's one chain_block call
+    assert set(got["counters"]) == set(want["counters"]) | \
+        set(HIT_COUNTERS) | {"chain_calls"}
     assert {k: got["counters"][k] for k in HIT_COUNTERS} == \
         {"hits_corrected": 0, "correct_batches": 0, "hits_returned": 3}
+    assert got["counters"]["chain_calls"] == 1
     assert jax_scopes == set(want["timers_s"])
     assert set(got["timers_s"]) == set(got["calls"])
     assert all(got["timers_s"][k] > 0 for k in jax_scopes)
